@@ -2,23 +2,34 @@
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --only kernels
-    python3 chip_smoke.py --profile    # adds a torch.profiler encode breakdown
+    python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
+                                       # one encode and one sweep
 
 Phases, one JSON line each (every phase asserts; nothing is caught):
   env      card name and power limit, TF32 switched off
   build    nvcc build of csrc/fused_step.cu and g++ build of the host codecs
-  kernels  the fused-step kernel against its plain PyTorch version at the
-           bench shape (B=8192, 128->64->64->4), full and ragged/masked
+  kernels  K1, the fused-step kernel, against its plain PyTorch version at
+           the bench shape (B=8192, 128->64->64->4), full and ragged/masked
            batches, and at a wider layer set (bc=128, nl=3, C=8); a 5-step
            chain against the exact autograd oracle; the kernel's CUDA-event
            time beside its bound and the plain time
+  kernels_experts  K2, the expert step (same source, an expert grid axis),
+           at the sweep's shape (E=4, B=8192): against its plain version,
+           and bit for bit against K1 on each expert's slices, full,
+           ragged with per-expert masks, and at the wider layer set; time,
+           bound, plain time
   encode   2048x2048x4 12-bit synthetic scene, seed 42, K=5, g=8, e=10,
            base codec lpc: one warm and three timed encodes, each of which
-           must launch the kernel exactly epochs x steps = 5120 times
+           must launch K1 exactly epochs x steps = 5120 times (and K2 never)
   determinism  the timed encodes' streams are byte-identical
   decode   three timed decodes; MSBs exact; PSNR
   rd       fused-kernel encode vs exact-step (use_fused=False) encode of the
            same scene and seed: PSNR within 0.1 dB
+  sweep    the rate sweep of the same scene, K in {3, 4, 5, 6}, "full" tap
+           staging: one warm and three timed `encode_rate_points`, each of
+           which must launch K2 exactly 5120 times (and K1 never); streams
+           byte-identical across sweeps; each point decoded (MSBs exact)
+           and held against `encode_image` at its K (PSNR within 0.1 dB)
 Then the kernels line, the card line, and the final status line.  Exits
 non-zero without a result when CUDA is absent or the package is missing.
 """
@@ -90,6 +101,51 @@ def cuda_ms(fn, n: int, rounds: int = 3, warm: int = 10) -> float:
     return float(np.median(per_call))
 
 
+def check_step(k_state, k_loss, p_state, p_loss, lr: float = 1e-3):
+    """A kernel's step against its plain version's, from the same state, at
+    the tolerances of tests/test_fused_step.py (only summation order
+    differs).  Returns (max abs param difference, params with |g| < 1e-6)."""
+    import torch
+
+    from lbdrn_msic_tpu_torch.ops.fused_step import ADAM_B1
+
+    (kp, km, kv), (pp, pm, pv) = k_state, p_state
+    torch.testing.assert_close(k_loss, p_loss, rtol=1e-5, atol=0)
+    for a, r in zip(km.leaves() + kv.leaves(), pm.leaves() + pv.leaves()):
+        torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-10)
+    # params: the first Adam step moves each by ~lr*g/(|g|+eps), whose
+    # sensitivity to g is lr*eps/(|g|+eps)^2 — ill-conditioned for
+    # |g| < 1e-6, where a last-bit difference in the gradient sum moves
+    # the param by up to 2*lr (bench.py's sign-flip bound).  Elements
+    # with |g| >= 1e-6 are held to the tests' tolerance.
+    n_ill, err = 0, 0.0
+    for a, r, m in zip(kp.leaves(), pp.leaves(), pm.leaves()):
+        well = (m.abs() / (1 - ADAM_B1)) >= 1e-6
+        torch.testing.assert_close(a[well], r[well], rtol=2e-4, atol=1e-6)
+        assert float((a - r).abs().max()) <= 2 * lr
+        n_ill += int((~well).sum())
+        err = max(err, float((a - r).abs().max()))
+    return err, n_ill
+
+
+def kernel_entry(name: str, replaces: str, card: str, ops: float, nbytes: float,
+                 ms: float, plain_ms: float, max_err: float) -> dict:
+    """One kernel's entry of the kernels line; `launches` is filled in by
+    the main-path phase that drives it."""
+    peak_ops, peak_bw = peaks(card)
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / peak_bw * 1e3
+    return {
+        "name": name, "route": "cuda",
+        "source": "lbdrn_msic_tpu_torch/csrc/fused_step.cu",
+        "replaces": replaces,
+        "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        # no single PyTorch call computes a fused forward + backward + Adam step
+        "library_ms": None,
+    }
+
+
 def phase_kernels(card: str):
     import numpy as np
     import torch
@@ -136,22 +192,7 @@ def phase_kernels(card: str):
         _, _, _, kl = fs.fused_train_step(kp, km, kv, x, y, mask, 1e-3, 1, spec, c)
         _, _, _, pl = fs.fused_train_step_plain(pp, pm, pv, x, y, mask, 1e-3, 1, spec, c)
         torch.cuda.synchronize()
-        # tolerances of tests/test_fused_step.py; only summation order differs
-        torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0)
-        for a, r in zip(km.leaves() + kv.leaves(), pm.leaves() + pv.leaves()):
-            torch.testing.assert_close(a, r, rtol=1e-3, atol=1e-10)
-        # params: the first Adam step moves each by ~lr*g/(|g|+eps), whose
-        # sensitivity to g is lr*eps/(|g|+eps)^2 — ill-conditioned for
-        # |g| < 1e-6, where a last-bit difference in the gradient sum moves
-        # the param by up to 2*lr (bench.py's sign-flip bound).  Elements
-        # with |g| >= 1e-6 are held to the tests' tolerance.
-        n_ill, err = 0, 0.0
-        for a, r, m in zip(kp.leaves(), pp.leaves(), pm.leaves()):
-            well = (m.abs() / (1 - fs.ADAM_B1)) >= 1e-6
-            torch.testing.assert_close(a[well], r[well], rtol=2e-4, atol=1e-6)
-            assert float((a - r).abs().max()) <= 2 * 1e-3
-            n_ill += int((~well).sum())
-            err = max(err, float((a - r).abs().max()))
+        err, n_ill = check_step((kp, km, kv), kl, (pp, pm, pv), pl)
         max_err = max(max_err, err)
         rows, staged = fs.cta_layout([F] + [w.shape[1] for w in p0.weights],
                                      fs._smem_optin)
@@ -182,17 +223,8 @@ def phase_kernels(card: str):
     dims = [F] + [w.shape[1] for w in params0.weights]
     P = sum(w.numel() + b.numel() for w, b in zip(params0.weights, params0.biases))
     ops, nbytes = step_cost(B, dims, P)
-    peak_ops, peak_bw = peaks(card)
-    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / peak_bw * 1e3
-    kernel = {
-        "name": "fused_train_step", "route": "cuda",
-        "source": "lbdrn_msic_tpu_torch/csrc/fused_step.cu",
-        "replaces": "lbdrn_msic_tpu/ops/fused_step.py:245",
-        "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-    }
+    kernel = kernel_entry("fused_train_step", "lbdrn_msic_tpu/ops/fused_step.py:245", card,
+                          ops, nbytes, ms, plain_ms, max_err)
     emit({"phase": "kernels", "cases": cases, "chain_losses": losses,
           "chain_param_drift": drift, "ops": ops, "bytes": nbytes,
           "ms": ms, "plain_ms": plain_ms, "bound_ms": kernel["bound_ms"],
@@ -200,18 +232,99 @@ def phase_kernels(card: str):
     return kernel
 
 
-def phase_profile(img, cfg, secs):
-    """One more encode under torch.profiler: device time by kernel name and
-    the device's busy share of the encode's wall time."""
+def phase_expert_kernels(card: str):
+    import numpy as np
+    import torch
+
+    from lbdrn_msic_tpu_torch.core.config import ModelSpec
+    from lbdrn_msic_tpu_torch.models.siren import (
+        init_params, pad_dim, stack_params, unstack_params)
+    from lbdrn_msic_tpu_torch.ops import fused_step as fs
+
+    mspec = ModelSpec()
+    E, C, dim_in, B = 4, 4, 100, 8192  # the sweep's K in {3, 4, 5, 6}
+    F = pad_dim(dim_in)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    clone = lambda p: p.map(torch.clone)
+
+    def inputs(b, densities, c):
+        """(E, b) batches; one shared (b,) mask of ones (as in the sweep),
+        or per-expert masks of the given densities."""
+        x = np.zeros((E, b, F), np.float32)
+        x[..., :dim_in] = rng.uniform(-1, 1, (E, b, dim_in))
+        y = (1 / (1 + np.exp(-rng.standard_normal((E, b, c))))).astype(np.float32)
+        if densities is None:
+            mask = np.ones(b, np.float32)
+        else:
+            mask = np.stack([rng.random(b) < d for d in densities]).astype(np.float32)
+        return [torch.from_numpy(a).to(dev) for a in (x, y, mask)]
+
+    def init(spec, c):  # a different network per expert
+        return stack_params([init_params(torch.Generator().manual_seed(e), dim_in, c, spec,
+                                         pad_input_to=F) for e in range(E)]).to(dev)
+
+    cases, max_err = [], 0.0
+    for name, b, dens, spec, c in (
+            ("full", B, None, mspec, C),
+            ("ragged_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C),
+            ("wide_ragged_per_expert_masks", 1000, (1.0, 0.8, 0.5, 0.0), ModelSpec(128, 3), 8)):
+        x, y, mask = inputs(b, dens, c)
+        p0 = init(spec, c)
+        z0 = p0.map(torch.zeros_like)
+        k = (clone(p0), clone(z0), clone(z0))
+        p = (clone(p0), clone(z0), clone(z0))
+        *_, kl = fs.fused_expert_step(*k, x, y, mask, 1e-3, 1, spec, c)
+        *_, pl = fs.fused_expert_step_plain(*p, x, y, mask, 1e-3, 1, spec, c)
+        torch.cuda.synchronize()
+        err, n_ill = check_step(k, kl, p, pl)
+        max_err = max(max_err, err)
+        # expert e of K2 is K1 on expert e's slices, bit for bit
+        for e in range(E):
+            one = tuple(unstack_params(st, e).map(torch.clone) for st in (p0, z0, z0))
+            *_, l1 = fs.fused_train_step(*one, x[e], y[e], mask[e] if mask.dim() == 2 else mask,
+                                         1e-3, 1, spec, c)
+            torch.cuda.synchronize()
+            assert torch.equal(kl[e], l1), (name, e)
+            for st2, st1 in zip(k, one):
+                for a, r in zip(unstack_params(st2, e).leaves(), st1.leaves()):
+                    assert torch.equal(a, r), (name, e)
+        rows, staged = fs.cta_layout([F] + [w.shape[-1] for w in p0.weights], fs._smem_optin)
+        cases.append({"case": name, "E": E, "B": b, "widths": [spec.base_channel,
+                                                               spec.num_layers, c],
+                      "mask_densities": dens, "rows_per_cta": rows, "weights_in_smem": staged,
+                      "loss": kl.tolist(), "loss_plain": pl.tolist(),
+                      "max_abs_err_params": err, "params_with_grad_below_1e-6": n_ill,
+                      "bit_identical_to_k1_per_expert": True})
+
+    # timing at the sweep's shape (state keeps training; lr is irrelevant)
+    x, y, mask = inputs(B, None, C)
+    tp = init(mspec, C)
+    tm, tv = tp.map(torch.zeros_like), tp.map(torch.zeros_like)
+    ms = cuda_ms(lambda: fs.fused_expert_step(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C), 300)
+    plain_ms = cuda_ms(
+        lambda: fs.fused_expert_step_plain(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C), 30)
+    dims = [F] + [w.shape[-1] for w in tp.weights]
+    P = sum(w[0].numel() + b[0].numel() for w, b in zip(tp.weights, tp.biases))
+    ops, nbytes = step_cost(B, dims, P)
+    kernel = kernel_entry("fused_expert_step", "lbdrn_msic_tpu/ops/fused_step.py:765", card,
+                          E * ops, E * nbytes, ms, plain_ms, max_err)
+    emit({"phase": "kernels_experts", "cases": cases, "E": E, "ops": E * ops,
+          "bytes": E * nbytes, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": kernel["bound_ms"], "card": card})
+    return kernel
+
+
+def phase_profile(what: str, run, secs):
+    """One more run of `run` under torch.profiler: device time by kernel
+    name and the device's busy share of the run's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from lbdrn_msic_tpu_torch.codec import encode_image
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        encode_image(img, cfg)
+        run()
         torch.cuda.synchronize()
         wall = time.time() - t0
     rows = []
@@ -225,8 +338,9 @@ def phase_profile(img, cfg, secs):
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    emit({"phase": "profile", "wall_s_profiled": wall, "wall_s_unprofiled": min(secs),
-          "device_busy_s": busy, "device_busy_share": busy / wall,
+    emit({"phase": "profile", "of": what, "wall_s_profiled": wall,
+          "wall_s_unprofiled": min(secs), "device_busy_s": busy,
+          "device_busy_share": busy / wall,
           "top": [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
                   for us, k, n in rows[:12]]})
 
@@ -238,7 +352,7 @@ def phase_codec(profile: bool, kernel):
     from lbdrn_msic_tpu_torch.codec import decode_stream, encode_image
     from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
     from lbdrn_msic_tpu_torch.eval.metrics import psnr
-    from lbdrn_msic_tpu_torch.ops.fused_step import fused_train_step
+    from lbdrn_msic_tpu_torch.ops.fused_step import fused_expert_step, fused_train_step
     from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
     H = W = 2048
@@ -252,12 +366,13 @@ def phase_codec(profile: bool, kernel):
     warm_s = time.time() - t0
     streams, secs, launches = [], [], []
     for _ in range(3):
-        fused_train_step.launches = 0
+        fused_train_step.launches = fused_expert_step.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
         stream, stats = encode_image(img, cfg)
         secs.append(time.time() - t0)
         launches.append(fused_train_step.launches)
+        assert fused_expert_step.launches == 0, fused_expert_step.launches
         streams.append(stream)
     assert launches == [n_steps] * 3, (launches, n_steps)
     kernel["launches"] = launches[0]
@@ -268,7 +383,7 @@ def phase_codec(profile: bool, kernel):
           "expected_launches": n_steps})
 
     if profile:
-        phase_profile(img, cfg, secs)
+        phase_profile("encode", lambda: encode_image(img, cfg), secs)
 
     assert all(s == warm_stream for s in streams), "same seed gave different streams"
     emit({"phase": "determinism", "encodes": 1 + len(streams), "identical": True,
@@ -297,11 +412,73 @@ def phase_codec(profile: bool, kernel):
           "exact_step_encode_s": exact_s})
 
 
+def phase_sweep(profile: bool, kernel):
+    import numpy as np
+    import torch
+
+    from lbdrn_msic_tpu_torch.codec import (
+        decode_stream, encode_image, encode_rate_points, plan_rate_points)
+    from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
+    from lbdrn_msic_tpu_torch.eval.metrics import psnr
+    from lbdrn_msic_tpu_torch.ops.fused_step import fused_expert_step, fused_train_step
+    from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+    H = W = 2048
+    mpx = H * W / 1e6
+    img = synth_scene(H, W, channels=4, effective_bits=12, seed=42)
+    Ks = (3, 4, 5, 6)
+    train = TrainSpec(sample_granule=8, epochs=10)
+    cfgs = [CodecConfig(K=K, base_codec="lpc", train=train) for K in Ks]
+    n_steps = train.epochs * -(-(-(-H * W // 8)) // (train.batch_size // 8))
+    staging, dtypes, groups, staged = plan_rate_points(img, cfgs)
+    assert staging == "full" and groups == [list(range(len(Ks)))], (staging, groups)
+
+    t0 = time.time()
+    warm = [s for s, _ in encode_rate_points(img, cfgs)]
+    warm_s = time.time() - t0
+    secs, launches = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        fused_train_step.launches = fused_expert_step.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = encode_rate_points(img, cfgs)
+        secs.append(time.time() - t0)
+        launches.append(fused_expert_step.launches)
+        assert fused_train_step.launches == 0, fused_train_step.launches
+        assert [s for s, _ in res] == warm, "same seed gave different sweep streams"
+    assert launches == [n_steps] * 3, (launches, n_steps)
+    kernel["launches"] = launches[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    points = []
+    for cfg, (stream, stats) in zip(cfgs, res):
+        rec, _ = decode_stream(stream)
+        assert rec.shape == img.shape and np.array_equal(rec >> cfg.K, img >> cfg.K), cfg.K
+        solo, solo_stats = encode_image(img, cfg)
+        p, p_solo = psnr(img, rec), psnr(img, decode_stream(solo)[0])
+        assert abs(p - p_solo) < 0.1, (cfg.K, p, p_solo)
+        points.append({"K": cfg.K, "psnr_db": p, "bpsp": stats.bpsp,
+                       "best_epoch": stats.tiles[0].best_epoch,
+                       "best_mse": stats.tiles[0].best_mse,
+                       "identical_to_encode_image": solo == stream,
+                       "psnr_encode_image_db": p_solo, "bpsp_encode_image": solo_stats.bpsp})
+    emit({"phase": "sweep", "shape": [4, H, W], "Ks": list(Ks), "staging": staging,
+          "tap_dtypes": [str(d).replace("torch.", "") for d in dtypes],
+          "staged_tap_bytes": sum(staged), "warm_s": warm_s, "seconds": secs,
+          "mpx_s_per_point": [mpx * len(Ks) / s for s in secs],
+          "phases": res[0][1].phases, "launches": launches, "expected_launches": n_steps,
+          "deterministic": True, "peak_device_gb": peak_gb, "points": points})
+
+    if profile:
+        phase_profile("sweep", lambda: encode_rate_points(img, cfgs), secs)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels",), default=None)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one encode with torch.profiler")
+                    help="also trace one encode and one sweep with torch.profiler")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -329,12 +506,15 @@ def main():
     n_s = time.time() - t0
     ptxas = _build.build_log.get("fused_step", {}).get("ptxas", "")
     emit({"phase": "build", "kernel_s": k_s, "native_s": n_s,
-          "ptxas": [ln for ln in ptxas.splitlines() if "registers" in ln or "spill" in ln]})
+          "ptxas": [ln for ln in ptxas.splitlines()
+                    if any(w in ln for w in ("entry function", "registers", "spill"))]})
 
-    kernel = phase_kernels(card)
+    k1 = phase_kernels(card)
+    k2 = phase_expert_kernels(card)
     if args.only != "kernels":
-        phase_codec(args.profile, kernel)
-    emit({"kernels": [kernel]})
+        phase_codec(args.profile, k1)
+        phase_sweep(args.profile, k2)
+    emit({"kernels": [k1, k2]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,8 +3,10 @@
 Orchestrates the pipeline the reference spreads over encode.py / decode.py
 (reference encode.py:167-289, decode.py:151-225): tile split, per-tile
 training on the device, weight + base-layer coding, header assembly; and
-the inverse.  Pure array-in/array-out.  Streams are the JAX package's v1
-format: either package decodes the other's streams.
+the inverse; `encode_rate_points` encodes one image at several K, one
+network per K trained together (the reference's run.sh rate sweep).  Pure
+array-in/array-out.  Streams are the JAX package's v1 format: either
+package decodes the other's streams.
 """
 
 from __future__ import annotations
@@ -21,7 +23,12 @@ from lbdrn_msic_tpu_torch import resolve_device
 from lbdrn_msic_tpu_torch.codecs.base_layer import decode_base, encode_base
 from lbdrn_msic_tpu_torch.codecs.weights import compress_weights, decompress_weights
 from lbdrn_msic_tpu_torch.core.config import CodecConfig
-from lbdrn_msic_tpu_torch.features.engine import lsb_scale, pad_plane, split_msb_lsb
+from lbdrn_msic_tpu_torch.features.engine import (
+    lsb_scale,
+    pad_plane,
+    split_msb_lsb,
+    tap_matrix_dtype,
+)
 from lbdrn_msic_tpu_torch.io.header import (
     StreamHeader,
     decode_header,
@@ -30,8 +37,13 @@ from lbdrn_msic_tpu_torch.io.header import (
     header_size,
 )
 from lbdrn_msic_tpu_torch.io.tiles import merge_tiles, split_image
-from lbdrn_msic_tpu_torch.models.siren import flatten_params, pad_dim, unflatten_params
-from lbdrn_msic_tpu_torch.train.loop import fit
+from lbdrn_msic_tpu_torch.models.siren import (
+    flatten_params,
+    pad_dim,
+    unflatten_params,
+    unstack_params,
+)
+from lbdrn_msic_tpu_torch.train.loop import fit, fit_rate_experts
 from lbdrn_msic_tpu_torch.utils.profiling import PhaseTimer
 from lbdrn_msic_tpu_torch.utils.transfer import put_image
 
@@ -240,6 +252,136 @@ def encode_image(
         elapsed=time.time() - t0,
         phases=dict(timer.phases),
     )
+
+
+def _experts_compatible(cfgs: List[CodecConfig]) -> bool:
+    """Rate-point jobs can train together as experts iff they differ only
+    in K."""
+    c0 = cfgs[0]
+    return all(
+        c.split_ratio == 1
+        and c.features == c0.features
+        and c.model == c0.model
+        and c.train == c0.train
+        and c.precision == c0.precision
+        and c.weight_codec == c0.weight_codec
+        and c.base_codec == c0.base_codec
+        and c.features.use_colors
+        for c in cfgs
+    )
+
+
+def plan_rate_points(img: np.ndarray, cfgs: List[CodecConfig]):
+    """The JAX package's staging plan for a rate sweep of compatible
+    configs: (staging, tap dtypes, groups of config indices, staged bytes
+    per expert).  "full" when every expert's tap matrix fits the budget
+    alone, else "banded" when its row taps do, else "gather"; experts are
+    chunked into groups whose staged bytes fit the budget together."""
+    C, H, W = img.shape
+    fspec = cfgs[0].features
+    g = cfgs[0].train.sample_granule
+    max_img = int(img.max())
+    sizes = [
+        _staging_bytes(H, W, C, fspec, g, _tap_itemsize(max_img >> c.K, fspec.relative),
+                       _tap_itemsize(max_img >> c.K, False))
+        for c in cfgs
+    ]
+    if max(s[0] for s in sizes) <= STAGE_BUDGET_BYTES:
+        staging, per_expert = "full", [s[0] for s in sizes]
+    elif max(s[1] for s in sizes) <= STAGE_BUDGET_BYTES:
+        staging, per_expert = "banded", [s[1] for s in sizes]
+    else:
+        staging, per_expert = "gather", [s[1] for s in sizes]
+    groups: List[List[int]] = [[]]
+    acc = 0
+    for i, b in enumerate(per_expert):
+        if groups[-1] and acc + b > STAGE_BUDGET_BYTES:
+            groups.append([])
+            acc = 0
+        groups[-1].append(i)
+        acc += b
+    dtypes = [tap_matrix_dtype(max_img >> c.K, fspec.relative) for c in cfgs]
+    return staging, dtypes, groups, per_expert
+
+
+def encode_rate_points(
+    img: np.ndarray,
+    cfgs: List[CodecConfig],
+    seed: Optional[int] = None,
+    use_fused: Optional[bool] = None,
+    device=None,
+) -> List[tuple[bytes, EncodeStats]]:
+    """Encode one image at several rate points: one network per K, all
+    trained together (`fit_rate_experts`; kernel K2 on the card).
+
+    img: (C, H, W) uint16.  `device=None` means CUDA; `use_fused` as in
+    `encode_image`.  The image crosses to the device once for every rate
+    point; the host base codecs of every K run in worker threads while the
+    device trains.  Every expert takes `encode_image`'s draws at the same
+    seed (`tile_generator(seed, 0)`), so each stream is byte-identical to
+    `encode_image(img, cfg, seed)`.  Configs that differ beyond K are
+    encoded one by one with `encode_image` (the same bytes).  Returns one
+    (stream, stats) per config, in order.
+    """
+    device = resolve_device(device)
+    if img.ndim == 2:
+        img = img[None]
+    C, H, W = img.shape
+    if not _experts_compatible(cfgs):
+        return [encode_image(img, c, seed, use_fused, device) for c in cfgs]
+    cfg0 = cfgs[0]
+    fspec = cfg0.features
+    seed = cfg0.train.seed if seed is None else seed
+    staging, dtypes, groups, _ = plan_rate_points(img, cfgs)
+    if staging != "full":
+        raise NotImplementedError(
+            f"image {C}x{H}x{W} needs {staging!r} staging for a rate sweep, "
+            "not ported yet (ROADMAP: banded staging)"
+        )
+
+    results: List[Optional[tuple[bytes, EncodeStats]]] = [None] * len(cfgs)
+    dev_img = put_image(img, device)  # one copy for every rate point
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+        for grp in groups:
+            t0 = time.time()
+            timer = PhaseTimer()
+            with timer.phase("dispatch"):
+                base_futs = [
+                    pool.submit(lambda K=cfgs[i].K: encode_base(_msb_plane(img, K),
+                                                                cfg0.base_codec))
+                    for i in grp
+                ]
+                result = fit_rate_experts(
+                    dev_img, [cfgs[i].K for i in grp], tile_generator(seed, 0),
+                    fspec, cfg0.model, cfg0.train, H, W, C,
+                    tap_dtypes=[dtypes[i] for i in grp], use_fused=use_fused,
+                    device=device,
+                )
+            with timer.phase("train_wait"):  # blocks on the device result
+                flats = [flatten_params(unstack_params(result.params, e),
+                                        fspec.feature_dim(C)) for e in range(len(grp))]
+            t_train = time.time() - t0
+            for e, i in enumerate(grp):
+                cfg = cfgs[i]
+                with timer.phase("weights_codec"):
+                    nn = compress_weights(flats[e], cfg.precision, cfg.weight_codec)
+                with timer.phase("base_wait"):
+                    base = base_futs[e].result()
+                header = header_from_config(cfg, W, H, [len(nn)], [len(base)], version=1)
+                stream = encode_header(header) + nn + base
+                results[i] = (stream, EncodeStats(
+                    tiles=[TileStats(
+                        nn_bytes=len(nn), base_bytes=len(base),
+                        best_mse=result.best_mse[e], best_epoch=result.best_epoch[e],
+                        train_time=t_train / len(grp), base_time=0.0,
+                    )],
+                    total_bytes=len(stream),
+                    n_subpixels=C * H * W,
+                    elapsed=time.time() - t0,
+                ))
+            for i in grp:  # the group's phases, shared by its points
+                results[i][1].phases = dict(timer.phases)
+    return results  # type: ignore[return-value]
 
 
 def _dispatch_decode(data: bytes, pt: PhaseTimer, device: torch.device):

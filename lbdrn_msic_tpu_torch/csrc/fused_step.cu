@@ -1,7 +1,10 @@
-// One fused SIREN training step on Hopper (sm_90a), CUDA C++.
+// Fused SIREN training steps on Hopper (sm_90a), CUDA C++: one network
+// (K1) or E independent networks in one launch pair (K2).
 //
-// Replaces the Pallas TPU kernel lbdrn_msic_tpu/ops/fused_step.py::
-// fused_train_step (body `_kernel`, with `_fwd_bwd`, `_adam`, `sincos`):
+// Replaces two Pallas TPU kernels of lbdrn_msic_tpu/ops/fused_step.py:
+//   K1 fused_train_step  (body `_kernel`, with `_fwd_bwd`, `_adam`, `sincos`)
+//   K2 fused_expert_step (body `_kernel_experts`: K1 per expert, grid (E, tiles))
+// One step of one network is:
 // forward through L = nl+1 full-f32 layers (hidden sin(w0 z) and w0 cos(w0 z)
 // from one shared Cody-Waite reduction, sigmoid head), masked SSE, the
 // hand-derived backward (no dX for layer 0), gradients summed over the
@@ -23,6 +26,17 @@
 //           thread 0 also writes the loss.
 // No float atomics: the step is deterministic run to run.
 //
+// Experts (K2).  Both passes take the expert from blockIdx.y: grid
+// (n_cta, E) for the partials, (ceil(P/256), E) for the reduction + Adam.
+// Every per-expert array is an expert-major stack ((E, in, out) weights,
+// (E, out) biases and their m, v; (E, B, F) x; (E, B, C) y; (E, n_cta, P+2)
+// scratch; (E,) loss), so expert e is K1's computation at offset e times
+// the array's per-expert size; the mask's per-expert stride is an argument
+// (0 when one (B,) mask is shared).  The count, and so inv_scale, is per
+// expert; lr, c1 and c2 are shared.  K1 is the E = 1 launch: its offsets
+// are all 0, and expert e of K2 is bit-identical to K1 on expert e's slices
+// (same code, same rows per CTA, same CTA-ordered sums).
+//
 // Bound at the bench shape (B = 8192, 128->64->64->4): about 0.51 GFLOP
 // (forward 205.5 M, dW 205.5 M, dH 71.3 M, sincos ~26 M) against about
 // 4.7 MB of compulsory traffic (x is 4.2 MB).  In f32 on the CUDA cores
@@ -31,6 +45,8 @@
 // tiles and makes no attempt at that bound; the partial-gradient scratch
 // (128 x 50.7 KB = 6.5 MB written and read per step, resident in L2) is the
 // first thing a faster version removes, then tensor-core (3xTF32) products.
+// K2 does E times that work and traffic: at the sweep's E = 4, 512 CTAs
+// (3.9 waves on 132 SMs) and a ~30 us bound.
 //
 // Arithmetic outside the matrix products uses explicitly rounded
 // operations (__fmul_rn / __fadd_rn: no FMA contraction), in the operation
@@ -43,7 +59,8 @@
 #define THREADS 256
 
 // What stays fixed over a fit (parameter and Adam-state pointers, widths),
-// so the host builds it once; x, y and mask are launch arguments.
+// so the host builds it once; x, y and mask are launch arguments.  With
+// experts, each pointer is that of expert 0 of its stack.
 struct StepArgs {
   float* w[MAX_LAYERS];
   float* b[MAX_LAYERS];
@@ -142,17 +159,29 @@ __device__ __forceinline__ int n_params(const StepArgs& a) {
   return p;
 }
 
+// per-expert element offsets of layer l's weight and bias stacks
+__device__ __forceinline__ size_t w_off(const StepArgs& a, int l, int e) {
+  return (size_t)e * a.dims[l] * a.dims[l + 1];
+}
+__device__ __forceinline__ size_t b_off(const StepArgs& a, int l, int e) {
+  return (size_t)e * a.dims[l + 1];
+}
+
 // kStageW: weights and biases staged in shared memory (a separate
 // instantiation, so that its products read through shared-memory loads)
 template <bool kStageW>
 __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float* x,
                                                           const float* y, const float* mask,
-                                                          float* scratch) {
+                                                          int mask_stride, float* scratch) {
   extern __shared__ float smem[];
   const int L = a.L, R = a.rows, F = a.dims[0], C = a.dims[L];
   const int row0 = blockIdx.x * R;
+  const int e = blockIdx.y;
   const int P = n_params(a);
-  float* part = scratch + (size_t)blockIdx.x * (P + 2);
+  float* part = scratch + ((size_t)e * gridDim.x + blockIdx.x) * (P + 2);
+  x += (size_t)e * a.B * F;
+  y += (size_t)e * a.B * C;
+  mask += (size_t)e * mask_stride;
 
   int gmax = 0;
   for (int l = 1; l <= L; ++l) gmax = max(gmax, a.dims[l]);
@@ -181,9 +210,11 @@ __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float
     float* p = wsm;
     for (int l = 0; l < L; ++l) {
       const int n = a.dims[l] * a.dims[l + 1];
-      for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = a.w[l][i];
+      const float* wg = a.w[l] + w_off(a, l, e);
+      const float* bg = a.b[l] + b_off(a, l, e);
+      for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = wg[i];
       p += n;
-      for (int i = threadIdx.x; i < a.dims[l + 1]; i += blockDim.x) p[i] = a.b[l][i];
+      for (int i = threadIdx.x; i < a.dims[l + 1]; i += blockDim.x) p[i] = bg[i];
       p += a.dims[l + 1];
     }
   }
@@ -194,14 +225,14 @@ __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float
   // its output
   float* acts = kStageW ? wsm + P : wsm;  // h_1..h_{L-1}, then cos_0..cos_{L-2}
   auto wl = [&](int l) -> const float* {
-    if constexpr (!kStageW) return a.w[l];
+    if constexpr (!kStageW) return a.w[l] + w_off(a, l, e);
     float* p = wsm;
     for (int q = 0; q < l; ++q) p += a.dims[q] * a.dims[q + 1] + a.dims[q + 1];
     return p;
   };
   auto bl = [&](int l) -> const float* {
     if constexpr (kStageW) return wl(l) + a.dims[l] * a.dims[l + 1];
-    return a.b[l];
+    return a.b[l] + b_off(a, l, e);
   };
   auto hl = [&](int l) -> float* {  // input of layer l
     if (l == 0) return xs;
@@ -303,6 +334,9 @@ __global__ void step_adam(StepArgs a, const float* scratch, int n_cta, float* lo
   const int P = n_params(a);
   const int S = P + 2;
   const int C = a.dims[a.L];
+  const int e = blockIdx.y;
+  scratch += (size_t)e * n_cta * S;
+  loss += e;
   float cnt = 0.0f;
   for (int c = 0; c < n_cta; ++c) cnt = __fadd_rn(cnt, scratch[(size_t)c * S + P + 1]);
   const float inv_scale = __fdiv_rn(1.0f, __fmul_rn(fmaxf(cnt, 1.0f), (float)C));
@@ -322,9 +356,17 @@ __global__ void step_adam(StepArgs a, const float* scratch, int n_cta, float* lo
   int q = p;
   for (int l = 0; l < a.L; ++l) {
     const int nw = a.dims[l] * a.dims[l + 1], nb = a.dims[l + 1];
-    if (q < nw) { th = a.w[l] + q; m = a.mw[l] + q; v = a.vw[l] + q; break; }
+    if (q < nw) {
+      const size_t o = w_off(a, l, e) + q;
+      th = a.w[l] + o; m = a.mw[l] + o; v = a.vw[l] + o;
+      break;
+    }
     q -= nw;
-    if (q < nb) { th = a.b[l] + q; m = a.mb[l] + q; v = a.vb[l] + q; break; }
+    if (q < nb) {
+      const size_t o = b_off(a, l, e) + q;
+      th = a.b[l] + o; m = a.mb[l] + o; v = a.vb[l] + o;
+      break;
+    }
     q -= nb;
   }
   const float m_new = __fadd_rn(__fmul_rn(0.9f, *m), __fmul_rn(0.1f, g));
@@ -349,11 +391,14 @@ int lbdrn_smem_optin(void) {
   return v;
 }
 
-// One training step: partials over n_cta CTAs, then the reduction + Adam.
-// Returns cudaGetLastError() after the launches (0 on success).
-int lbdrn_fused_step(const StepArgs* args, const float* x, const float* y, const float* mask,
-                     float* scratch, int n_cta, int smem_bytes, float* loss, float lr,
-                     float c1, float c2, void* stream) {
+// One training step of E experts (E = 1: K1): partials over (n_cta, E)
+// CTAs, then the reduction + Adam.  `mask_stride`: elements between two
+// experts' masks (0: one shared (B,) mask).  Returns cudaGetLastError()
+// after the launches (0 on success).
+int lbdrn_fused_step(const StepArgs* args, int E, const float* x, const float* y,
+                     const float* mask, int mask_stride, float* scratch, int n_cta,
+                     int smem_bytes, float* loss, float lr, float c1, float c2,
+                     void* stream) {
   static int smem_set[2] = {0, 0};  // opted-in size per instantiation
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int staged = args->stage_w ? 1 : 0;
@@ -366,13 +411,16 @@ int lbdrn_fused_step(const StepArgs* args, const float* x, const float* y, const
   }
   int P = 0;
   for (int l = 0; l < args->L; ++l) P += args->dims[l] * args->dims[l + 1] + args->dims[l + 1];
+  const dim3 grid1(n_cta, E), grid2((P + 255) / 256, E);
   if (staged)
-    step_partials<true><<<n_cta, THREADS, smem_bytes, s>>>(*args, x, y, mask, scratch);
+    step_partials<true><<<grid1, THREADS, smem_bytes, s>>>(*args, x, y, mask, mask_stride,
+                                                          scratch);
   else
-    step_partials<false><<<n_cta, THREADS, smem_bytes, s>>>(*args, x, y, mask, scratch);
+    step_partials<false><<<grid1, THREADS, smem_bytes, s>>>(*args, x, y, mask, mask_stride,
+                                                           scratch);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  step_adam<<<(P + 255) / 256, 256, 0, s>>>(*args, scratch, n_cta, loss, lr, c1, c2);
+  step_adam<<<grid2, 256, 0, s>>>(*args, scratch, n_cta, loss, lr, c1, c2);
   return (int)cudaGetLastError();
 }
 

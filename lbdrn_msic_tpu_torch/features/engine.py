@@ -1,4 +1,4 @@
-"""Feature/label engine, cached-staging subset.
+"""Feature/label engine, "cached" and "full" staging.
 
 Semantics match the reference pipeline (reference LBDRNdataset.py:92-133 /
 decode.py:77-102) and are bit-identical to the JAX package's engine: the
@@ -11,9 +11,12 @@ order, LBDRNdataset.py:119-129): ``[band0: (2D+1)^2 taps row-major, band1:
 ..., ...]`` with taps optionally center-subtracted (RELATIVE) and
 max-normalized.  Coordinate features are not ported yet.
 
-Training batches come from the "cached" staging buffer: every pixel's
-final model input row, built once with the slice path
-(`build_feature_cache`); a batch is one row gather.
+Training batches come from one of two staging buffers, both built once
+with the slice path: "cached", every pixel's final f32 model input row
+(`build_feature_cache`), where a batch is one row gather; or "full", every
+pixel's integer taps in their smallest dtype (`build_tap_matrix`), where a
+batch is one row gather, a convert and a scale (`staged_features`).  Both
+give values bit-identical to `row_block_features`.
 """
 
 from __future__ import annotations
@@ -115,6 +118,53 @@ def build_feature_cache(plane, scale, spec: FeatureSpec, H: int, W: int,
         feats = row_block_features(plane, scale, r0, spec, H, W, rows)
         out[r0 * W : (r0 + rows) * W, : feats.shape[-1]] = feats
     return out
+
+
+def tap_matrix_dtype(max_value: int, relative: bool) -> torch.dtype:
+    """Smallest integer dtype that holds every tap value: relative taps span
+    [-max, max], absolute ones [0, max].  Absolute taps above 255 are held
+    as int32, where the JAX package uses uint16 (torch's uint16 has few
+    operators); `codec._tap_itemsize` keeps the JAX package's byte count."""
+    if relative:
+        if max_value <= 127:
+            return torch.int8
+        return torch.int16 if max_value <= 32767 else torch.int32
+    return torch.uint8 if max_value <= 255 else torch.int32
+
+
+def build_tap_matrix(plane, spec: FeatureSpec, H: int, W: int,
+                     dtype: torch.dtype = torch.int16, g: int = 1) -> torch.Tensor:
+    """Every pixel's integer taps (center-subtracted if RELATIVE), in flat
+    g-pixel granules: (ceil(H*W/g), g * C*(2D+1)^2) `dtype`; trailing pixels
+    of the last granule are zero.  Built in row blocks with the slice path
+    into the (rows, taps) matrix, whose granule view is free."""
+    if spec.use_coords or not spec.use_colors:
+        raise NotImplementedError(
+            "coordinate features are not ported yet (ROADMAP: pipelined "
+            "encode/decode and the full-plane decode)"
+        )
+    C = plane.shape[0]
+    F = C * (2 * spec.D + 1) ** 2
+    n_g = -(-H * W // g)
+    out = torch.zeros((n_g * g, F), dtype=dtype, device=plane.device)
+    R = feature_block_rows(H, W)
+    for r0 in range(0, H, R):
+        rows = min(R, H - r0)
+        out[r0 * W : (r0 + rows) * W] = _block_taps_int(plane, r0, spec, W, rows).to(dtype)
+    return out.view(n_g, g * F)
+
+
+def staged_features(taps: torch.Tensor, scale: torch.Tensor, idx: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Staged path: rows `idx` of a tap matrix as f32 times `scale`, the
+    values of `row_block_features` for those pixels (or granules).  `out`:
+    an f32 view of the same number of elements (say the first F columns of
+    a zero-padded batch buffer) that the rows are written into."""
+    rows = torch.index_select(taps, 0, idx)
+    if out is None:
+        return rows.to(torch.float32) * scale
+    out.copy_(rows.view(out.shape))
+    return out.mul_(scale)
 
 
 def build_label_matrix(lsb: torch.Tensor, pad_rows_to: int | None = None) -> torch.Tensor:

@@ -111,6 +111,38 @@ def forward(
     return torch.sigmoid(z)
 
 
+def forward_experts(
+    params: SirenParams, x: torch.Tensor, spec: ModelSpec, fast_act: bool = False,
+) -> torch.Tensor:
+    """Batched-expert forward: leaves carry a leading expert axis E
+    (weights[i]: (E, in_i, out_i); biases[i]: (E, out_i)); x: (E, B, padded).
+    One batched product per layer for all experts; same math as `forward`
+    per expert.  Returns (E, B, dim_out)."""
+    n = len(params.weights)
+    h = x
+    for i in range(n - 1):
+        w0 = spec.w0_initial if i == 0 else spec.w0
+        z = torch.bmm(h, params.weights[i]) + params.biases[i][:, None, :]
+        h = _sin(w0 * z, fast_act)
+    z = torch.bmm(h, params.weights[-1]) + params.biases[-1][:, None, :]
+    return torch.sigmoid(z)
+
+
+def stack_params(params_list: Sequence[SirenParams]) -> SirenParams:
+    """Stack per-expert params along a new leading expert axis (contiguous,
+    as the expert kernel takes them)."""
+    return SirenParams(
+        [torch.stack(ws) for ws in zip(*(p.weights for p in params_list))],
+        [torch.stack(bs) for bs in zip(*(p.biases for p in params_list))],
+    )
+
+
+def unstack_params(params: SirenParams, e: int) -> SirenParams:
+    """Expert e of stacked params, as views: writing into them writes into
+    the stack."""
+    return params.map(lambda t: t[e])
+
+
 def pad_features(x: torch.Tensor, padded_dim: int) -> torch.Tensor:
     """Zero-pad the feature axis to the model's padded input width."""
     d = x.shape[-1]
@@ -123,7 +155,8 @@ def params_from_numpy(
     weights: Sequence[np.ndarray], biases: Sequence[np.ndarray], device="cpu"
 ) -> SirenParams:
     """Parameters given as numpy arrays in the JAX layout (for example the
-    JAX package's SirenParams, fetched to the host) -> SirenParams."""
+    JAX package's SirenParams, fetched to the host) -> SirenParams.  Expert
+    stacks ((E, in, out) weights, (E, out) biases) carry across as they are."""
     conv = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
     return SirenParams([conv(w) for w in weights], [conv(b) for b in biases])
 

@@ -1,6 +1,7 @@
 """Fused SIREN training step: one hand-written CUDA kernel on the card
 (`csrc/fused_step.cu`), its plain PyTorch version beside it, and the
-autodiff oracle.
+autodiff oracle; for one network (K1, `fused_train_step`) or for E
+independent networks in one launch (K2, `fused_expert_step`).
 
 One step performs, for one batch:
 
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from lbdrn_msic_tpu_torch.core.config import ModelSpec
-from lbdrn_msic_tpu_torch.models.siren import SirenParams
+from lbdrn_msic_tpu_torch.models.siren import SirenParams, unstack_params
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -211,9 +212,9 @@ def _kernel_lib():
         lib.lbdrn_smem_optin.restype = ctypes.c_int
         lib.lbdrn_fused_step.restype = ctypes.c_int
         lib.lbdrn_fused_step.argtypes = [
-            ctypes.POINTER(_StepArgs), ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ctypes.POINTER(_StepArgs), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
         ]
         _smem_optin = lib.lbdrn_smem_optin()
         _lib = lib
@@ -229,47 +230,39 @@ def _check(t: torch.Tensor, shape, what: str, device: torch.device):
         raise ValueError(f"{what}: must be contiguous")
 
 
-def fused_train_step(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
-                     x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-                     lr: float, step: int, mspec: ModelSpec, dim_out: int,
-                     loss_out: torch.Tensor | None = None):
-    """One fused training step, in place on params, m_state and v_state.
-
-    x: (B, padded_in) f32; y: (B, dim_out) f32; mask: (B,) f32; `lr` and the
-    1-indexed Adam `step` are host numbers (the bias corrections are
-    computed here in float32, so nothing syncs).  Any B: the kernel masks
-    its last CTA's rows.  `loss_out`: optional 0-d f32 tensor the loss is
-    written into (the training loop passes a slot of its loss buffer).
-    Returns (params, m_state, v_state, loss).
-
-    CUDA tensors launch the kernel of csrc/fused_step.cu (raising if it
-    cannot build or launch); CPU tensors take `fused_train_step_plain`.
-    """
-    if x.device.type == "cpu":
-        return fused_train_step_plain(params, m_state, v_state, x, y, mask,
-                                      lr, step, mspec, dim_out, loss_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
+            x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, lr: float, step: int,
+            mspec: ModelSpec, dim_out: int, loss_out: torch.Tensor | None, E: int | None):
+    """Check shapes and launch csrc/fused_step.cu once: one network
+    (`E=None`: unstacked leaves, x (B, F), mask (B,), 0-d loss) or E experts
+    (leaves with a leading E axis, x (E, B, F), mask (B,) shared or (E, B),
+    (E,) loss).  Returns the loss tensor."""
     lib = _kernel_lib()
     L = len(params.weights)
     if L > MAX_LAYERS or L != mspec.num_layers + 1:
         raise ValueError(f"unsupported layer count {L}")
-    B, F = x.shape
-    dims = [F] + [w.shape[1] for w in params.weights]
+    lead = () if E is None else (E,)
+    B, F = x.shape[-2:]
+    dims = [F] + [w.shape[-1] for w in params.weights]
     if dims[-1] != dim_out:
         raise ValueError(f"head width {dims[-1]} != dim_out {dim_out}")
     dev = x.device
-    _check(x, (B, F), "x", dev)
-    _check(y, (B, dim_out), "y", dev)
-    _check(mask, (B,), "mask", dev)
+    _check(x, (*lead, B, F), "x", dev)
+    _check(y, (*lead, B, dim_out), "y", dev)
+    if mask.dim() == 2 and E is not None:
+        _check(mask, (E, B), "mask", dev)
+        mask_stride = B
+    else:
+        _check(mask, (B,), "mask", dev)
+        mask_stride = 0
     for l in range(L):
         for st, nm in ((params, "param"), (m_state, "m"), (v_state, "v")):
-            _check(st.weights[l], (dims[l], dims[l + 1]), f"{nm} weight {l}", dev)
-            _check(st.biases[l], (dims[l + 1],), f"{nm} bias {l}", dev)
+            _check(st.weights[l], (*lead, dims[l], dims[l + 1]), f"{nm} weight {l}", dev)
+            _check(st.biases[l], (*lead, dims[l + 1]), f"{nm} bias {l}", dev)
     if loss_out is None:
-        loss_out = torch.empty((), dtype=torch.float32, device=x.device)
+        loss_out = torch.empty(lead, dtype=torch.float32, device=dev)
     else:
-        _check(loss_out, (), "loss_out", dev)
+        _check(loss_out, lead, "loss_out", dev)
 
     leaves = params.leaves() + m_state.leaves() + v_state.leaves()
     key = (tuple(t.data_ptr() for t in leaves), B, tuple(dims), mspec)
@@ -295,20 +288,96 @@ def fused_train_step(params: SirenParams, m_state: SirenParams, v_state: SirenPa
         _args_cache[key] = hit
     args, smem, n_cta, P = hit
 
-    scratch = torch.empty((n_cta, P + 2), dtype=torch.float32, device=x.device)
+    n_exp = 1 if E is None else E
+    scratch = torch.empty((n_exp, n_cta, P + 2), dtype=torch.float32, device=dev)
     c1, c2 = bias_corrections(step)
     rc = lib.lbdrn_fused_step(
-        ctypes.byref(args), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+        ctypes.byref(args), n_exp, x.data_ptr(), y.data_ptr(), mask.data_ptr(), mask_stride,
         scratch.data_ptr(), n_cta, smem, loss_out.data_ptr(),
-        float(np.float32(lr)), c1, c2, torch.cuda.current_stream(x.device).cuda_stream,
+        float(np.float32(lr)), c1, c2, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
+    return loss_out
+
+
+def fused_train_step(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
+                     x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                     lr: float, step: int, mspec: ModelSpec, dim_out: int,
+                     loss_out: torch.Tensor | None = None):
+    """One fused training step, in place on params, m_state and v_state.
+
+    x: (B, padded_in) f32; y: (B, dim_out) f32; mask: (B,) f32; `lr` and the
+    1-indexed Adam `step` are host numbers (the bias corrections are
+    computed here in float32, so nothing syncs).  Any B: the kernel masks
+    its last CTA's rows.  `loss_out`: optional 0-d f32 tensor the loss is
+    written into (the training loop passes a slot of its loss buffer).
+    Returns (params, m_state, v_state, loss).
+
+    CUDA tensors launch the kernel of csrc/fused_step.cu (raising if it
+    cannot build or launch); CPU tensors take `fused_train_step_plain`.
+    """
+    if x.device.type == "cpu":
+        return fused_train_step_plain(params, m_state, v_state, x, y, mask,
+                                      lr, step, mspec, dim_out, loss_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    loss_out = _launch(params, m_state, v_state, x, y, mask, lr, step, mspec, dim_out,
+                       loss_out, None)
     fused_train_step.launches += 1
     return params, m_state, v_state, loss_out
 
 
 fused_train_step.launches = 0
+
+
+def fused_expert_step_plain(params, m_state, v_state, x, y, mask, lr, step,
+                            mspec: ModelSpec, dim_out: int, loss_out=None):
+    """K2's function in plain torch ops: `fused_train_step_plain` on each
+    expert's slices in turn (in place on the stacks).  mask: (B,) shared or
+    (E, B).  Returns (params, m, v, loss (E,))."""
+    E = x.shape[0]
+    if loss_out is None:
+        loss_out = torch.empty((E,), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        fused_train_step_plain(
+            unstack_params(params, e), unstack_params(m_state, e),
+            unstack_params(v_state, e), x[e], y[e],
+            mask[e] if mask.dim() == 2 else mask, lr, step, mspec, dim_out,
+            loss_out=loss_out[e],
+        )
+    return params, m_state, v_state, loss_out
+
+
+def fused_expert_step(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
+                      x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                      lr: float, step: int, mspec: ModelSpec, dim_out: int,
+                      loss_out: torch.Tensor | None = None):
+    """One fused training step of E independent experts, in place.
+
+    params/m/v leaves carry a leading expert axis (weights (E, in, out),
+    biases (E, out)), contiguous; x: (E, B, padded_in); y: (E, B, dim_out);
+    mask: (B,) shared or (E, B) per expert.  lr and the Adam step are
+    shared; each expert's loss is scaled by its own mask count.
+    `loss_out`: optional (E,) f32 tensor the losses are written into.
+    Returns (params, m_state, v_state, loss (E,)).
+
+    CUDA tensors launch csrc/fused_step.cu with an expert grid axis (one
+    launch pair for all experts; raising if it cannot build or launch); CPU
+    tensors take `fused_expert_step_plain`.
+    """
+    if x.device.type == "cpu":
+        return fused_expert_step_plain(params, m_state, v_state, x, y, mask,
+                                       lr, step, mspec, dim_out, loss_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    loss_out = _launch(params, m_state, v_state, x, y, mask, lr, step, mspec, dim_out,
+                       loss_out, x.shape[0])
+    fused_expert_step.launches += 1
+    return params, m_state, v_state, loss_out
+
+
+fused_expert_step.launches = 0
 
 
 def reference_train_step(params, m_state, v_state, x, y, mask, lr, step,

@@ -1,4 +1,6 @@
-"""The per-image overfit loop, single device, "cached" staging.
+"""The per-image overfit loop (`fit`, "cached" staging) and the rate-sweep
+loop that trains one network per rate point K together
+(`fit_rate_experts`, "full" staging).
 
 Faithful semantics (RD parity with the reference at matched settings):
 - per-epoch shuffle = fresh random permutation of all g-pixel granules;
@@ -10,11 +12,14 @@ Faithful semantics (RD parity with the reference at matched settings):
   best-params checkpoint (reference encode.py:96-117); with epochs == 1 the
   final weights are taken directly (reference encode.py:100-103).
 
-Every step is one row gather from the feature cache and one call of the
-fused step (`ops/fused_step.py`: the CUDA kernel on the card) or, with
-`use_fused=False`, of the exact autograd step.  The loop never syncs with
-the device inside an epoch: per-step losses land in a preallocated device
-tensor, and the best-params rule reads one scalar per evaluated epoch.
+Every step of `fit` is one row gather from the feature cache and one call
+of the fused step (`ops/fused_step.py`: kernel K1 on the card) or, with
+`use_fused=False`, of the exact autograd step; every step of
+`fit_rate_experts` is one gather per expert from its tap matrix and one
+call of the expert step (kernel K2) for all experts.  Neither loop syncs
+with the device inside an epoch: per-step losses land in a preallocated
+device tensor, and the best-params rule reads one scalar per evaluated
+epoch (per expert).
 
 Randomness (init params, epoch permutations) is drawn from a CPU
 `torch.Generator`, so CPU and card runs see the same numbers; tests inject
@@ -33,20 +38,35 @@ from lbdrn_msic_tpu_torch import resolve_device
 from lbdrn_msic_tpu_torch.core.config import FeatureSpec, ModelSpec, TrainSpec
 from lbdrn_msic_tpu_torch.features.engine import (
     build_feature_cache,
+    build_granule_labels,
     build_label_matrix,
+    build_tap_matrix,
     feature_block_rows,
+    lsb_scale,
+    pad_plane,
+    split_msb_lsb,
+    staged_features,
+    tap_matrix_dtype,
 )
 from lbdrn_msic_tpu_torch.models.siren import (
     SirenParams,
     forward,
     init_params as siren_init,
     pad_dim,
+    unstack_params,
 )
-from lbdrn_msic_tpu_torch.ops.fused_step import fused_train_step, reference_train_step
+from lbdrn_msic_tpu_torch.ops.fused_step import (
+    fused_expert_step,
+    fused_train_step,
+    reference_train_step,
+)
 
 
 @dataclasses.dataclass
 class FitResult:
+    """One network's fit; from `fit_rate_experts`, every field carries a
+    leading expert axis (best_mse and best_epoch are lists of E)."""
+
     params: SirenParams  # best-MSE params (the bitstream payload)
     best_mse: float
     best_epoch: int  # 1-indexed, -1 if never evaluated
@@ -76,26 +96,62 @@ def make_lr_schedule(tspec: TrainSpec, steps_per_epoch: int) -> Callable[[int], 
     return schedule
 
 
+def blocks_mse(params: SirenParams, x_rows: Callable, y_rows: Callable,
+               mspec: ModelSpec, H: int, W: int, C: int, block_rows: int,
+               fast_act: bool = False) -> torch.Tensor:
+    """Full-image MSE over row blocks of R = `block_rows` image rows.
+
+    x_rows(r0) / y_rows(r0): the (R*W, padded_in) f32 model inputs and the
+    (R*W, C) f32 scaled labels of rows r0..r0+R.  Blocks start at
+    min(b*R, H-R); rows a clamped block re-reads are masked, as in the JAX
+    package.  Returns a 0-d f32 tensor."""
+    R = block_rows
+    sse = 0.0
+    for b in range(-(-H // R)):
+        r0 = min(b * R, H - R)
+        pred = forward(params, x_rows(r0), mspec, fast_act=fast_act)
+        skip = b * R - r0  # leading rows already counted by block b-1
+        err = (pred - y_rows(r0)) ** 2
+        sse = sse + err[skip * W :].sum()
+    return sse / (H * W * C)
+
+
 def dataset_mse(params: SirenParams, x_cache: torch.Tensor, labels: torch.Tensor,
                 mspec: ModelSpec, H: int, W: int, block_rows: int,
                 fast_act: bool = False) -> torch.Tensor:
     """Full-image MSE over contiguous row blocks of the feature cache.
 
     x_cache: (>= H*W, padded_in) f32 model inputs; labels: (>= H*W, C) f32
-    scaled labels.  Blocks start at min(b*R, H-R); rows a clamped block
-    re-reads are masked, as in the JAX package.  Returns a 0-d f32 tensor."""
-    C = labels.shape[1]
-    R = block_rows
-    sse = torch.zeros((), dtype=torch.float32, device=x_cache.device)
-    for b in range(-(-H // R)):
-        r0 = min(b * R, H - R)
-        x = x_cache[r0 * W : (r0 + R) * W]
-        pred = forward(params, x, mspec, fast_act=fast_act)
-        y = labels[r0 * W : (r0 + R) * W]
-        skip = b * R - r0  # leading rows already counted by block b-1
-        err = (pred - y) ** 2
-        sse = sse + err[skip * W :].sum()
-    return sse / (H * W * C)
+    scaled labels.  Returns a 0-d f32 tensor."""
+    n = block_rows * W
+    return blocks_mse(params, lambda r0: x_cache[r0 * W : r0 * W + n],
+                      lambda r0: labels[r0 * W : r0 * W + n],
+                      mspec, H, W, labels.shape[1], block_rows, fast_act)
+
+
+def _batch_geometry(tspec: TrainSpec, n: int):
+    """(bs, g, n_g, bpg, steps) for n pixels: batch size, sampling granule
+    (1 when it does not divide the batch), granules, granules per batch,
+    steps per epoch."""
+    bs = min(tspec.batch_size, n)
+    g = tspec.sample_granule
+    if g > 1 and bs % g:
+        g = 1
+    n_g = -(-n // g)
+    bpg = bs // g
+    return bs, g, n_g, bpg, -(-n_g // bpg)
+
+
+def _epoch_batches(epoch: int, perms, generator, n_g: int, n: int, g: int, bpg: int,
+                   steps: int, dev: torch.device):
+    """This epoch's permutation (injected, else drawn from `generator`),
+    padded to whole batches -> (granule ids (steps, bpg), masks (steps, bs))."""
+    if perms is not None:
+        perm = torch.from_numpy(np.array(perms[epoch], dtype=np.int64))
+    else:
+        perm = torch.randperm(n_g, generator=generator)
+    perm = torch.cat([perm, torch.full((steps * bpg - n_g,), n_g, dtype=torch.int64)])
+    return _granule_batches(perm.view(steps, bpg).to(dev), n_g, n, g, steps)
 
 
 def _granule_batches(perm: torch.Tensor, n_g: int, n: int, g: int, steps: int):
@@ -146,13 +202,7 @@ def fit(
         dim_in = fspec.feature_dim(C)
         padded_in = pad_dim(dim_in)
         n = H * W
-        bs = min(tspec.batch_size, n)
-        g = tspec.sample_granule
-        if g > 1 and bs % g:
-            g = 1
-        n_g = -(-n // g)
-        bpg = bs // g
-        steps = -(-n_g // bpg)
+        bs, g, n_g, bpg, steps = _batch_geometry(tspec, n)
         block_rows = feature_block_rows(H, W)
 
         x_cache = build_feature_cache(plane, plane_scale, fspec, H, W, padded_in, g=g)
@@ -174,12 +224,7 @@ def fit(
         best_mse, best_epoch = np.float32(1e6), -1
         count = 0
         for epoch in range(tspec.epochs):
-            if perms is not None:
-                perm = torch.from_numpy(np.array(perms[epoch], dtype=np.int64))
-            else:
-                perm = torch.randperm(n_g, generator=generator)
-            perm = torch.cat([perm, torch.full((steps * bpg - n_g,), n_g, dtype=torch.int64)])
-            gi, masks = _granule_batches(perm.view(steps, bpg).to(dev), n_g, n, g, steps)
+            gi, masks = _epoch_batches(epoch, perms, generator, n_g, n, g, bpg, steps, dev)
             for s in range(steps):
                 torch.index_select(xg, 0, gi[s], out=xbuf)
                 torch.index_select(yg, 0, gi[s], out=ybuf)
@@ -203,5 +248,161 @@ def fit(
             best_epoch=int(best_epoch),
             final_params=params,
             epoch_losses=step_losses.mean(dim=1),
+            step_losses=step_losses,
+        )
+
+
+def _exact_expert_step(params, m_state, v_state, x, y, mask, lr, step, mspec, dim_out,
+                       loss_out):
+    """The exact autograd step on each expert's slices in turn: what
+    `fit_rate_experts(use_fused=False)` trains with."""
+    for e in range(x.shape[0]):
+        reference_train_step(unstack_params(params, e), unstack_params(m_state, e),
+                             unstack_params(v_state, e), x[e], y[e], mask, lr, step,
+                             mspec, dim_out, loss_out=loss_out[e])
+
+
+def fit_rate_experts(
+    img: torch.Tensor,
+    Ks: Sequence[int],
+    generator: Optional[torch.Generator],
+    fspec: FeatureSpec,
+    mspec: ModelSpec,
+    tspec: TrainSpec,
+    H: int,
+    W: int,
+    C: int,
+    tap_dtypes: Optional[Sequence[torch.dtype]] = None,
+    use_fused: Optional[bool] = None,
+    staging: str = "full",
+    multi_k: int = 0,
+    img_of: Optional[tuple] = None,
+    hws=None,
+    init: Optional[SirenParams] = None,
+    perms: Optional[Sequence[np.ndarray]] = None,
+    device=None,
+) -> FitResult:
+    """Train one network per rate point K, all E = len(Ks) experts together.
+
+    img: (C, H, W) integer tensor of raw pixels.  Each expert stages its own
+    integer tap matrix of the K-dependent MSB plane ("full" staging, in
+    `tap_dtypes`, default the smallest dtype); labels share one store of
+    the raw pixels, LSB_K = pixel & (2^K - 1) applied per expert after the
+    gather.  All experts start from the same init and see the same
+    permutation each epoch, drawn as `fit` draws them (`init` / `perms`
+    replace the draws when given), so expert e follows the trajectory that
+    `fit` would follow at K = Ks[e]: every step is one expert step for all
+    experts (`fused_expert_step`, kernel K2 on the card, whose expert e is
+    bit-identical to K1; or, with `use_fused=False`, the exact autograd
+    step per expert), and every `val_every` epochs each expert's
+    full-image MSE (from its tap matrix, values bit-identical to `fit`'s
+    feature cache) decides its own strict-improvement best params.
+
+    Returns a FitResult whose fields carry a leading expert axis.  Banded
+    staging, cross-image experts (`img_of`), bucket masks (`hws`) and the
+    multi-step path (`multi_k`) are not ported and raise.
+    """
+    if staging == "banded":
+        raise NotImplementedError("banded staging is not ported yet (ROADMAP: banded staging)")
+    if staging != "full":
+        raise ValueError(f"unknown staging mode {staging!r}")
+    if img_of is not None:
+        raise NotImplementedError(
+            "cross-image experts (img_of) are not ported yet (ROADMAP: encode_dataset)")
+    if hws is not None:
+        raise NotImplementedError(
+            "per-expert bucket masks (hws) are not ported yet (ROADMAP: bucketing)")
+    if multi_k:
+        raise NotImplementedError(
+            "the multi-step path (multi_k) is not ported yet (ROADMAP: K3 and K4)")
+    dev = resolve_device(device)
+    if use_fused is None:
+        use_fused = dev.type == "cuda"
+    step_fn = fused_expert_step if use_fused else _exact_expert_step
+    E = len(Ks)
+    with torch.no_grad():
+        img = img.to(dev, torch.int32)
+        dim_in = fspec.feature_dim(C)
+        padded_in = pad_dim(dim_in)
+        n = H * W
+        bs, g, n_g, bpg, steps = _batch_geometry(tspec, n)
+        block_rows = feature_block_rows(H, W)
+        if tap_dtypes is None:
+            max_img = int(img.max())
+            tap_dtypes = [tap_matrix_dtype(max_img >> K, fspec.relative) for K in Ks]
+
+        scales, taps = [], []
+        for K, dt in zip(Ks, tap_dtypes):
+            plane, scale = pad_plane(split_msb_lsb(img, K)[0], fspec.D)
+            scales.append(scale)
+            taps.append(build_tap_matrix(plane, fspec, H, W, dt, g=g))
+        raw = build_granule_labels(img, H, W, g)  # raw pixels, (n_g, g*C)
+        kmasks = torch.tensor([(1 << K) - 1 for K in Ks], dtype=torch.int32, device=dev)
+        kmasks = kmasks.view(E, 1, 1)
+        lscales = torch.tensor([lsb_scale(K) for K in Ks], dtype=torch.float32, device=dev)
+        lscales = lscales.view(E, 1, 1)
+        xbuf = torch.zeros((E, bs, padded_in), dtype=torch.float32, device=dev)
+        lbuf = torch.empty((bpg, g * C), dtype=torch.int32, device=dev)
+        ybits = torch.empty((E, bs, C), dtype=torch.int32, device=dev)
+        ybuf = torch.empty((E, bs, C), dtype=torch.float32, device=dev)
+
+        # the eval's inputs and labels, one row block at a time
+        nb = block_rows * W
+        xeval = torch.zeros((nb, padded_in), dtype=torch.float32, device=dev)
+
+        def x_rows(e, r0):
+            xe = xeval[:, :dim_in]
+            xe.copy_(taps[e].view(-1, dim_in)[r0 * W : r0 * W + nb])
+            xe.mul_(scales[e])
+            return xeval
+
+        def y_rows(e, r0):
+            rows = raw.view(-1, C)[r0 * W : r0 * W + nb]
+            return (rows & kmasks[e]).to(torch.float32) * lscales[e]
+
+        if init is None:
+            init = siren_init(generator, dim_in, C, mspec, pad_input_to=padded_in)
+        params = init.map(lambda t: t.to(dev, torch.float32).expand(E, *t.shape).contiguous())
+        m_state = params.map(torch.zeros_like)
+        v_state = params.map(torch.zeros_like)
+        schedule = make_lr_schedule(tspec, steps)
+
+        losses = torch.zeros((tspec.epochs, steps, E), dtype=torch.float32, device=dev)
+        best = params.map(torch.zeros_like)
+        best_mse, best_epoch = [np.float32(1e6)] * E, [-1] * E
+        count = 0
+        for epoch in range(tspec.epochs):
+            gi, masks = _epoch_batches(epoch, perms, generator, n_g, n, g, bpg, steps, dev)
+            for s in range(steps):
+                for e in range(E):
+                    staged_features(taps[e], scales[e], gi[s], out=xbuf[e, :, :dim_in])
+                torch.index_select(raw, 0, gi[s], out=lbuf)
+                torch.bitwise_and(lbuf.view(1, bs, C), kmasks, out=ybits)
+                ybuf.copy_(ybits).mul_(lscales)
+                step_fn(params, m_state, v_state, xbuf, ybuf, masks[s], schedule(count),
+                        count + 1, mspec, C, loss_out=losses[epoch, s])
+                count += 1
+
+            if tspec.epochs == 1:
+                best = params.map(torch.clone)
+                best_mse = [float(losses[0, :, e].contiguous().mean()) for e in range(E)]
+                best_epoch = [1] * E
+            elif (epoch + 1) % min(tspec.val_every, tspec.epochs) == 0:
+                for e in range(E):
+                    mse = float(blocks_mse(
+                        unstack_params(params, e), lambda r0: x_rows(e, r0),
+                        lambda r0: y_rows(e, r0), mspec, H, W, C, block_rows,
+                        fast_act=use_fused))
+                    if mse < best_mse[e]:  # strict improvement, per expert
+                        for b_, p_ in zip(best.leaves(), params.leaves()):
+                            b_[e].copy_(p_[e])
+                        best_mse[e], best_epoch[e] = mse, epoch + 1
+        step_losses = losses.permute(2, 0, 1).contiguous()  # (E, epochs, steps)
+        return FitResult(
+            params=best,
+            best_mse=[float(v) for v in best_mse],
+            best_epoch=[int(v) for v in best_epoch],
+            final_params=params,
+            epoch_losses=step_losses.mean(dim=2),
             step_losses=step_losses,
         )

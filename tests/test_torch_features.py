@@ -87,6 +87,48 @@ def test_labels_identical(C, g):
     np.testing.assert_array_equal(rows.numpy(), jrows.astype(np.int32))
 
 
+# (K, relative) -> the tap dtype of a 12-bit scene's MSB plane: int8, int16,
+# absolute uint8, and absolute above 255 (JAX uint16, held as int32 here)
+TAP_CASES = [(5, True, "int8", torch.int8), (3, True, "int16", torch.int16),
+             (5, False, "uint8", torch.uint8), (3, False, "uint16", torch.int32)]
+
+
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("K_,relative,jdtype,dtype", TAP_CASES)
+def test_tap_matrix_identical(K_, relative, jdtype, dtype, g):
+    """`build_tap_matrix` holds the JAX package's values for every tap
+    dtype and granule; `staged_features` rows are bit-identical to the JAX
+    function's and to the port's own feature cache."""
+    img = _img(4)
+    jmsb, _ = jeng.split_msb_lsb(jnp.asarray(img), K_)
+    jplane, jscale = jeng.pad_plane(jmsb, 2)
+    msb, _ = engine.split_msb_lsb(torch.from_numpy(img.astype(np.int32)), K_)
+    plane, scale = engine.pad_plane(msb, 2)
+    mx = int(img.max()) >> K_
+    assert jnp.dtype(jeng.tap_matrix_dtype(mx, relative)).name == jdtype
+    assert engine.tap_matrix_dtype(mx, relative) == dtype
+    jspec, spec = JFeatureSpec(relative=relative), FeatureSpec(relative=relative)
+    ref = jeng.build_tap_matrix(jplane, jspec, H, W, jnp.dtype(jdtype), g=g)
+    got = engine.build_tap_matrix(plane, spec, H, W, dtype, g=g)
+    assert got.dtype == dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), np.asarray(ref).astype(np.int64))
+
+    idx = np.random.default_rng(g).integers(0, got.shape[0], 300)
+    jrows = jeng.staged_features(ref, jscale, jnp.asarray(idx), jspec, H, W)
+    rows = engine.staged_features(got, scale, torch.from_numpy(idx))
+    np.testing.assert_array_equal(_bits(rows.numpy()), _bits(jrows))
+    F = rows.shape[1] // g
+    cache = engine.build_feature_cache(plane, scale, spec, H, W, 128, g=g)
+    np.testing.assert_array_equal(
+        _bits(rows.numpy()), _bits(cache.view(-1, g * 128)[idx].view(-1, g, 128)[..., :F]
+                                   .reshape(len(idx), -1).numpy()))
+    # written into the first F columns of a padded batch buffer
+    buf = torch.zeros((len(idx) * g, 128))
+    engine.staged_features(got, scale, torch.from_numpy(idx), out=buf[:, :F])
+    np.testing.assert_array_equal(_bits(buf.numpy()),
+                                  _bits(cache.view(-1, g * 128)[idx].reshape(-1, 128).numpy()))
+
+
 def test_reflect_index_matches_numpy():
     for n, D in ((5, 2), (9, 4), (37, 1)):
         a = np.arange(n)

@@ -45,6 +45,45 @@ def test_forward_matches_jax(bc, nl, dim_in, dim_out, fast_act):
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("fast_act", [False, True])
+@pytest.mark.parametrize("bc,nl,dim_in,dim_out", SPECS)
+def test_forward_experts_matches_jax(bc, nl, dim_in, dim_out, fast_act):
+    """Three experts' stacked params (carried across by params_from_numpy)
+    and batches: the batched forward vs the JAX einsum forward, at
+    test_forward_matches_jax's tolerance, and vs `forward` per expert."""
+    jspec, spec = JModelSpec(bc, nl), ModelSpec(bc, nl)
+    jps = [jsiren.init_params(jax.random.PRNGKey(5 + e), dim_in, dim_out, jspec)
+           for e in range(3)]
+    jp = jsiren.stack_params(jps)
+    p = siren.params_from_numpy([np.asarray(w) for w in jp.weights],
+                                [np.asarray(b) for b in jp.biases])
+    rng = np.random.default_rng(6)
+    x = np.zeros((3, 256, jp.weights[0].shape[1]), np.float32)
+    x[..., :dim_in] = rng.uniform(-1, 1, (3, 256, dim_in))
+    ref = np.asarray(jsiren.forward_experts(jp, jnp.asarray(x), jspec, fast_act=fast_act))
+    got = siren.forward_experts(p, torch.from_numpy(x), spec, fast_act=fast_act).numpy()
+    # f32 matmuls in different summation orders, then sin/sigmoid
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    for e in range(3):
+        one = siren.forward(siren.unstack_params(p, e), torch.from_numpy(x[e]), spec,
+                            fast_act=fast_act).numpy()
+        np.testing.assert_allclose(got[e], one, rtol=1e-6, atol=1e-6)
+
+
+def test_stack_unstack_params():
+    spec = ModelSpec()
+    ps = [siren.init_params(torch.Generator().manual_seed(s), 100, 4, spec) for s in range(3)]
+    st = siren.stack_params(ps)
+    assert [tuple(w.shape) for w in st.weights] == [(3, 128, 64), (3, 64, 64), (3, 64, 4)]
+    assert all(t.is_contiguous() for t in st.leaves())
+    for e, p in enumerate(ps):
+        assert all(torch.equal(a, b) for a, b in zip(siren.unstack_params(st, e).leaves(),
+                                                     p.leaves()))
+    # expert views write through into the stack
+    siren.unstack_params(st, 1).biases[0].fill_(7.0)
+    assert torch.all(st.biases[0][1] == 7.0) and not torch.any(st.biases[0][0] == 7.0)
+
+
 @pytest.mark.parametrize("bc,nl,dim_in,dim_out", SPECS)
 def test_flatten_byte_identical(bc, nl, dim_in, dim_out):
     ws, bs, jp = _jax_params(3, dim_in, dim_out, JModelSpec(bc, nl))
