@@ -3,7 +3,8 @@
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
-                                       # one encode and one sweep
+                                       # one encode, one sweep and the
+                                       # fit at multi_k 0 and 16
 
 Phases, one JSON line each (every phase asserts; nothing is caught):
   env      card name and power limit, TF32 switched off
@@ -30,13 +31,29 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            which must launch K2 exactly 5120 times (and K1 never); streams
            byte-identical across sweeps; each point decoded (MSBs exact)
            and held against `encode_image` at its K (PSNR within 0.1 dB)
-Then the kernels line, the card line, and the final status line.  Exits
+  kernels_multi  K3 (k steps of K1 in one persistent cooperative launch)
+           and K4 (of K2), same source: K3 at k=16, B=8192; ragged/masked
+           with a schedule and step0=3; wide; K4 at E=4, k=8, full and
+           wide.  Each step at K1's tolerances against the plain step from
+           the same state, the whole chunk at trajectory tolerance against
+           the plain k steps, every launch bit for bit k chained K1 / K2
+           launches, K4's expert e bit for bit K3; time per launch and per
+           step, k chained single-step launches, bound, plain time
+  multi_k  `fit` (K=5) at multi_k in {0, 4, 16, 64} and `fit_rate_experts`
+           (K in {3, 4, 5, 6}) at {0, 8, 32} on the same scene, the
+           counterpart of scripts/profiling/multik_ab.py: one warm and two
+           timed rounds, interleaved; exactly epochs x ceil(steps / k)
+           K3 / K4 launches (0 single-step ones), or epochs x steps K1 / K2
+           at multi_k=0; every chunked fit bit-identical to multi_k=0
+Then the kernels line (K1-K4), the card line, and the final status line.  Exits
 non-zero without a result when CUDA is absent or the package is missing.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import hashlib
 import json
 import os
 import subprocess
@@ -315,6 +332,232 @@ def phase_expert_kernels(card: str):
     return kernel
 
 
+def phase_multi_kernels(card: str):
+    import numpy as np
+    import torch
+
+    from lbdrn_msic_tpu_torch.core.config import ModelSpec
+    from lbdrn_msic_tpu_torch.models.siren import (
+        init_params, pad_dim, stack_params, unstack_params)
+    from lbdrn_msic_tpu_torch.ops import fused_step as fs
+
+    mspec, wide = ModelSpec(), ModelSpec(128, 3)
+    C, dim_in, B = 4, 100, 8192
+    F = pad_dim(dim_in)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    clone = lambda st: tuple(p.map(torch.clone) for p in st)
+
+    def inputs(k, E, b, masked, c):
+        """k steps of (E,) b-row batches and (k, b) masks (20 % zero)."""
+        lead = (k,) if E is None else (k, E)
+        x = np.zeros((*lead, b, F), np.float32)
+        x[..., :dim_in] = rng.uniform(-1, 1, (*lead, b, dim_in))
+        y = (1 / (1 + np.exp(-rng.standard_normal((*lead, b, c))))).astype(np.float32)
+        masks = np.ones((k, b), np.float32)
+        if masked:
+            masks[rng.random((k, b)) < 0.2] = 0.0
+        return [torch.from_numpy(a).to(dev) for a in (x, y, masks)]
+
+    def state(spec, c, E):
+        """(params, m, v): one network, or E different ones stacked."""
+        nets = [init_params(torch.Generator().manual_seed(e), dim_in, c, spec, pad_input_to=F)
+                for e in range(E or 1)]
+        p = (nets[0] if E is None else stack_params(nets)).to(dev)
+        return p, p.map(torch.zeros_like), p.map(torch.zeros_like)
+
+    def same(st_a, st_b):
+        return all(torch.equal(a, b) for pa, pb in zip(st_a, st_b)
+                   for a, b in zip(pa.leaves(), pb.leaves()))
+
+    # (name, E, k, B, masked, lrs, step0, spec, C): K3 and K4 at the bench
+    # widths, full; ragged/masked with a schedule and a mid-fit step0; and
+    # the wide layer set, whose weights are read from global memory
+    var = lambda k: [1e-3 * 0.5 ** (s % 3) for s in range(k)]
+    cases, max_err = [], {"k3": 0.0, "k4": 0.0}
+    for name, E, k, b, masked, lrs, step0, spec, c in (
+            ("k3_full", None, 16, B, False, [1e-3] * 16, 1, mspec, C),
+            ("k3_ragged_masked", None, 8, B - 37, True, var(8), 3, mspec, C),
+            ("k3_wide_ragged_masked", None, 4, 1000, True, var(4), 3, wide, 8),
+            ("k4_full", 4, 8, B, False, [1e-3] * 8, 1, mspec, C),
+            ("k4_wide_ragged_masked", 4, 4, 1000, True, var(4), 3, wide, 8)):
+        X, Y, masks = inputs(k, E, b, masked, c)
+        s0 = state(spec, c, E)
+        multi, single, plain, plain1 = (
+            (fs.fused_multi_step, fs.fused_train_step, fs.fused_multi_step_plain,
+             fs.fused_train_step_plain) if E is None else
+            (fs.fused_expert_multi_step, fs.fused_expert_step, fs.fused_expert_multi_step_plain,
+             fs.fused_expert_step_plain))
+        kst, pst, cst = clone(s0), clone(s0), clone(s0)
+        n0 = multi.launches
+        *_, kl = multi(*kst, X, Y, masks, lrs, step0, spec, c)
+        assert multi.launches == n0 + 1
+        grid = multi.grid
+        *_, pl = plain(*pst, X, Y, masks, lrs, step0, spec, c)
+        # the same k steps as k chained single-step launches, each held at
+        # K1's tolerances against one plain step from the same state
+        cl = torch.empty_like(kl)
+        err, n_ill = 0.0, 0
+        for s in range(k):
+            ref = clone(cst)
+            *_, rl = plain1(*ref, X[s], Y[s], masks[s], lrs[s], step0 + s, spec, c)
+            single(*cst, X[s], Y[s], masks[s], lrs[s], step0 + s, spec, c, loss_out=cl[s])
+            torch.cuda.synchronize()
+            e1, i1 = check_step(cst, cl[s], ref, rl, lr=lrs[s])
+            err, n_ill = max(err, e1), max(n_ill, i1)
+        key = "k3" if E is None else "k4"
+        max_err[key] = max(max_err[key], err)
+        assert torch.equal(kl, cl) and same(kst, cst), (name, "multi-step != chained steps")
+        # the whole chunk against the plain k steps: trajectory tolerance
+        # (the kernels phase's chain bounds), since an ill-conditioned
+        # param's 2*lr flip feeds every later step's gradients
+        torch.testing.assert_close(kl, pl, rtol=1e-4, atol=1e-6)
+        drift = max(float((a - r).abs().max()) for a, r in zip(kst[0].leaves(), pst[0].leaves()))
+        assert drift < 3 * k * max(lrs), (name, drift)
+        if E is not None:  # expert e of K4 is K3 on expert e's slices
+            for e in range(E):
+                one = clone(tuple(unstack_params(p, e) for p in s0))
+                *_, l3 = fs.fused_multi_step(*one, X[:, e].contiguous(), Y[:, e].contiguous(),
+                                             masks, lrs, step0, spec, c)
+                torch.cuda.synchronize()
+                assert torch.equal(kl[:, e], l3), (name, e)
+                assert same(tuple(unstack_params(p, e) for p in kst), one), (name, e)
+        rows, staged = fs.cta_layout([F] + [w.shape[-1] for w in s0[0].weights], fs._smem_optin)
+        cases.append({"case": name, "E": E or 1, "k": k, "B": b,
+                      "widths": [spec.base_channel, spec.num_layers, c], "step0": step0,
+                      "lrs": lrs, "grid_ctas": grid, "rows_per_cta": rows,
+                      "weights_in_smem": staged, "losses": kl.tolist(),
+                      "max_abs_err_params_per_step_vs_plain": err,
+                      "params_with_grad_below_1e-6": n_ill,
+                      "max_rel_err_losses_chunk_vs_plain": float(((kl - pl).abs() / pl.abs()).max()),
+                      "max_abs_err_params_chunk_vs_plain": drift,
+                      "bit_identical_to_chained_single_steps": True,
+                      "bit_identical_to_k3_per_expert": True if E else None})
+
+    # timing at the bench shape (state keeps training; lr is irrelevant):
+    # one launch of k steps, k chained single-step launches, the plain version
+    dims = [F] + [w.shape[-1] for w in state(mspec, C, None)[0].weights]
+    P = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(len(dims) - 1))
+    ops, nbytes = step_cost(B, dims, P)
+    kernels, timing = [], []
+    for E, k, multi, single, plain, replaces in (
+            (None, 16, fs.fused_multi_step, fs.fused_train_step, fs.fused_multi_step_plain,
+             "lbdrn_msic_tpu/ops/fused_step.py:418"),
+            (4, 8, fs.fused_expert_multi_step, fs.fused_expert_step,
+             fs.fused_expert_multi_step_plain, "lbdrn_msic_tpu/ops/fused_step.py:585")):
+        X, Y, masks = inputs(k, E, B, False, C)
+        st = state(mspec, C, E)
+        lrs = [1e-3] * k
+
+        def chained():
+            for s in range(k):
+                single(*st, X[s], Y[s], masks[s], lrs[s], 1 + s, mspec, C)
+
+        ms = cuda_ms(lambda: multi(*st, X, Y, masks, lrs, 1, mspec, C), 40, warm=3)
+        chained_ms = cuda_ms(chained, 40, warm=3)
+        plain_ms = cuda_ms(lambda: plain(*st, X, Y, masks, lrs, 1, mspec, C), 2, warm=1)
+        n = E or 1
+        entry = kernel_entry(multi.__name__, replaces, card, k * n * ops, k * n * nbytes, ms,
+                             plain_ms, max_err["k3" if E is None else "k4"])
+        entry["steps_per_launch"] = k
+        kernels.append(entry)
+        timing.append({"kernel": multi.__name__, "E": n, "k": k, "B": B, "grid_ctas": multi.grid,
+                       "ms_per_launch": ms, "ms_per_step": ms / k,
+                       "chained_single_step_ms": chained_ms,
+                       "chained_single_step_ms_per_step": chained_ms / k,
+                       "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+                       "plain_ms": plain_ms})
+    emit({"phase": "kernels_multi", "cases": cases, "timing": timing, "card": card})
+    return kernels
+
+
+def phase_multi_k(card: str, profile: bool, k3, k4):
+    """`fit` and `fit_rate_experts` at the bench shape with multi_k, the
+    counterpart of scripts/profiling/multik_ab.py: interleaved runs, exact
+    launch counts, every chunked fit bit-identical to its multi_k=0 fit."""
+    import numpy as np
+    import torch
+
+    from lbdrn_msic_tpu_torch.codec import _prepare_tile, plan_rate_points, tile_generator
+    from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
+    from lbdrn_msic_tpu_torch.features.engine import lsb_scale
+    from lbdrn_msic_tpu_torch.ops import fused_step as fs
+    from lbdrn_msic_tpu_torch.train.loop import fit, fit_rate_experts
+    from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+    from lbdrn_msic_tpu_torch.utils.transfer import put_image
+
+    H = W = 2048
+    C, K = 4, 5
+    img = synth_scene(H, W, channels=C, effective_bits=12, seed=42)
+    train = TrainSpec(sample_granule=8, epochs=10)
+    Ks = (3, 4, 5, 6)
+    cfgs = [CodecConfig(K=k, base_codec="lpc", train=train) for k in Ks]
+    cfg = cfgs[Ks.index(K)]
+    steps = -(-(-(-H * W // 8)) // (train.batch_size // 8))
+    dev_img = put_image(img, torch.device("cuda"))
+    plane, plane_scale, labels = _prepare_tile(dev_img, K, cfg.features.D)
+    label_scale = float(np.float32(lsb_scale(K)))
+    _, dtypes, _, _ = plan_rate_points(img, cfgs)
+    kernels = (fs.fused_train_step, fs.fused_expert_step, fs.fused_multi_step,
+               fs.fused_expert_multi_step)
+
+    def fit_k(k):
+        return fit(plane, plane_scale, labels, label_scale, tile_generator(train.seed, 0),
+                   cfg.features, cfg.model, train, H, W, C, multi_k=k)
+
+    def sweep_k(k):
+        return fit_rate_experts(dev_img, Ks, tile_generator(train.seed, 0), cfg.features,
+                                cfg.model, train, H, W, C, tap_dtypes=dtypes, multi_k=k)
+
+    def same(a, b):
+        return (torch.equal(a.step_losses, b.step_losses) and a.best_epoch == b.best_epoch
+                and a.best_mse == b.best_mse
+                and all(torch.equal(x, y) for x, y in zip(a.params.leaves(), b.params.leaves())))
+
+    out = {}
+    for what, run, ks, single, multi in (("fit", fit_k, (0, 4, 16, 64), 0, 2),
+                                         ("sweep", sweep_k, (0, 8, 32), 1, 3)):
+        rows = {k: {"multi_k": k, "seconds": [], "launches": []} for k in ks}
+        ref = None
+        for rnd in range(3):  # one warm round, two timed, interleaved
+            for k in ks:
+                for kern in kernels:
+                    kern.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.time()
+                res = run(k)
+                torch.cuda.synchronize()
+                secs = time.time() - t0
+                counts = [kern.launches for kern in kernels]
+                want = [0, 0, 0, 0]
+                if k:
+                    want[multi] = train.epochs * -(-steps // k)
+                else:
+                    want[single] = train.epochs * steps
+                assert counts == want, (what, k, counts, want)
+                ref = ref or res
+                assert same(res, ref), (what, k, "chunked fit differs from multi_k=0")
+                if rnd:
+                    rows[k]["seconds"].append(secs)
+                rows[k]["launches"] = counts[multi] if k else counts[single]
+        base = float(np.median(rows[0]["seconds"]))
+        for k in ks:
+            r = rows[k]
+            r["kernel"] = kernels[multi if k else single].__name__
+            r["identical_to_multi_k_0"] = True
+            r["median_s_vs_multi_k_0"] = float(np.median(r["seconds"])) / base
+        out[what] = [rows[k] for k in ks]
+    k3["launches"] = out["fit"][2]["launches"]  # at k = 16, as timed in kernels_multi
+    k4["launches"] = out["sweep"][1]["launches"]  # at k = 8
+    emit({"phase": "multi_k", "shape": [C, H, W], "steps_per_epoch": steps,
+          "epochs": train.epochs, "fit_K": K, "sweep_Ks": list(Ks), **out, "card": card})
+
+    if profile:
+        for row in out["fit"][:3:2]:  # multi_k 0 and 16
+            phase_profile(f"fit multi_k={row['multi_k']}", lambda: fit_k(row["multi_k"]),
+                          row["seconds"])
+
+
 def phase_profile(what: str, run, secs):
     """One more run of `run` under torch.profiler: device time by kernel
     name and the device's busy share of the run's wall time."""
@@ -380,7 +623,7 @@ def phase_codec(profile: bool, kernel):
           "mpx_s": [mpx / s for s in secs], "phases": stats.phases,
           "bpsp": stats.bpsp, "best_epoch": stats.tiles[0].best_epoch,
           "best_mse": stats.tiles[0].best_mse, "launches": launches,
-          "expected_launches": n_steps})
+          "expected_launches": n_steps, "sha256": hashlib.sha256(streams[0]).hexdigest()})
 
     if profile:
         phase_profile("encode", lambda: encode_image(img, cfg), secs)
@@ -462,6 +705,7 @@ def phase_sweep(profile: bool, kernel):
                        "best_epoch": stats.tiles[0].best_epoch,
                        "best_mse": stats.tiles[0].best_mse,
                        "identical_to_encode_image": solo == stream,
+                       "sha256": hashlib.sha256(stream).hexdigest(),
                        "psnr_encode_image_db": p_solo, "bpsp_encode_image": solo_stats.bpsp})
     emit({"phase": "sweep", "shape": [4, H, W], "Ks": list(Ks), "staging": staging,
           "tap_dtypes": [str(d).replace("torch.", "") for d in dtypes],
@@ -478,7 +722,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels",), default=None)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one encode and one sweep with torch.profiler")
+                    help="also trace one encode, one sweep and two fits with torch.profiler")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -498,12 +742,19 @@ def main():
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
-    t0 = time.time()
-    _build.load("fused_step")
-    k_s = time.time() - t0
-    t0 = time.time()
-    assert _native.load() is not None, "native codec library did not build"
-    n_s = time.time() - t0
+    def timed(fn):
+        t0 = time.time()
+        fn()
+        return time.time() - t0
+
+    def native():
+        assert _native.load() is not None, "native codec library did not build"
+
+    # nvcc (the kernels) and g++ (the host codecs) side by side
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        k_fut = pool.submit(timed, lambda: _build.load("fused_step"))
+        n_fut = pool.submit(timed, native)
+        k_s, n_s = k_fut.result(), n_fut.result()
     ptxas = _build.build_log.get("fused_step", {}).get("ptxas", "")
     emit({"phase": "build", "kernel_s": k_s, "native_s": n_s,
           "ptxas": [ln for ln in ptxas.splitlines()
@@ -511,10 +762,12 @@ def main():
 
     k1 = phase_kernels(card)
     k2 = phase_expert_kernels(card)
+    k3, k4 = phase_multi_kernels(card)
     if args.only != "kernels":
         phase_codec(args.profile, k1)
         phase_sweep(args.profile, k2)
-    emit({"kernels": [k1, k2]})
+        phase_multi_k(card, args.profile, k3, k4)
+    emit({"kernels": [k1, k2, k3, k4]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

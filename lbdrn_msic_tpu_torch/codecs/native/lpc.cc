@@ -221,17 +221,22 @@ int ParseV2(const uint8_t* data, uint64_t len, V2Layout* out) {
   if (out->h < 1 || out->w < 1 || out->chunk_rows < 1 || out->c < 1 ||
       (out->itemsize != 1 && out->itemsize != 2))
     return 1;
-  out->n_chunks = (out->h + out->chunk_rows - 1) / out->chunk_rows;
-  int nt = out->c * out->n_chunks;
-  if (len < kHdr2 + 4ull * nt) return 1;
+  // h, chunk_rows and c come from the stream: count chunks in 64 bits (a
+  // crafted h near 2^31 overflows int arithmetic) and reject a size table
+  // that does not fit in the stream before allocating for it
+  const uint64_t n_chunks =
+      (static_cast<uint64_t>(out->h) + out->chunk_rows - 1) / out->chunk_rows;
+  const uint64_t nt = static_cast<uint64_t>(out->c) * n_chunks;
+  if (nt > (len - kHdr2) / 4) return 1;
+  out->n_chunks = static_cast<int>(n_chunks);  // <= h, so it fits
   out->sizes.resize(nt);
   out->starts.resize(nt);
   uint64_t off = kHdr2;
-  for (int i = 0; i < nt; ++i) {
+  for (uint64_t i = 0; i < nt; ++i) {
     std::memcpy(&out->sizes[i], data + off, 4);
     off += 4;
   }
-  for (int i = 0; i < nt; ++i) {
+  for (uint64_t i = 0; i < nt; ++i) {
     out->starts[i] = off;
     off += out->sizes[i];
   }

@@ -1,9 +1,13 @@
 // Fused SIREN training steps on Hopper (sm_90a), CUDA C++: one network
-// (K1) or E independent networks in one launch pair (K2).
+// (K1), E independent networks in one launch pair (K2), and k sequential
+// steps of one (K3) or E (K4) networks in one persistent launch.
 //
-// Replaces two Pallas TPU kernels of lbdrn_msic_tpu/ops/fused_step.py:
+// Replaces four Pallas TPU kernels of lbdrn_msic_tpu/ops/fused_step.py:
 //   K1 fused_train_step  (body `_kernel`, with `_fwd_bwd`, `_adam`, `sincos`)
 //   K2 fused_expert_step (body `_kernel_experts`: K1 per expert, grid (E, tiles))
+//   K3 fused_multi_step  (body `_kernel_multi`: k K1 steps, grid (k,))
+//   K4 fused_expert_multi_step (body `_kernel_expert_multi`: K3 per expert,
+//      grid (E, k), one mask per step shared by the experts)
 // One step of one network is:
 // forward through L = nl+1 full-f32 layers (hidden sin(w0 z) and w0 cos(w0 z)
 // from one shared Cody-Waite reduction, sigmoid head), masked SSE, the
@@ -37,6 +41,31 @@
 // are all 0, and expert e of K2 is bit-identical to K1 on expert e's slices
 // (same code, same rows per CTA, same CTA-ordered sums).
 //
+// Multi-step (K3, K4).  The TPU kernels keep params and Adam state in VMEM
+// over k grid steps to save a runtime's per-call overhead; here what k
+// steps in one launch save is the host's per-step work (two launches, a
+// batch gather and the schedule a step).  One cooperative launch of
+// min(E * n_tiles, resident CTAs) persistent CTAs runs, for each step s:
+//   1. the CTAs stride over the (expert, row tile) items; item (e, t) is
+//      exactly K2's CTA (t, e): same rows, same code, same scratch row;
+//   2. grid barrier;
+//   3. the grid's threads stride over the E * P parameters: each sums its
+//      partials in tile order, takes inv_scale from the tiles' counts and
+//      applies Adam exactly as pass 2 does; parameter 0 writes loss[s, e];
+//   4. grid barrier.
+// So every step is bit-identical to K2's (and, per expert, K1's).  Data
+// that the launch itself rewrites (params, m, v, the partials) is read with
+// ld.global.cg after the barriers: from L2, never from a stale L1 line or
+// the read-only path.  lr, c1, c2 of step s come from a (k, 3) table; the
+// batch of step s lies at x + s * x_step (strides are arguments, so any
+// step- or expert-major layout works).  The barrier is an arrival counter
+// and a generation word in global memory (the pattern of cooperative_groups'
+// grid sync, written out so that the -shared build needs no relocatable
+// device code); the cooperative launch refuses a grid that is not wholly
+// resident, and the grid is sized by the occupancy query, so it cannot
+// deadlock.  At the bench widths one 184 KB CTA fits an SM: K3 (128 items)
+// is one wave, K4 at E = 4 (512 items) loops ~3.9 items per CTA.
+//
 // Bound at the bench shape (B = 8192, 128->64->64->4): about 0.51 GFLOP
 // (forward 205.5 M, dW 205.5 M, dH 71.3 M, sincos ~26 M) against about
 // 4.7 MB of compulsory traffic (x is 4.2 MB).  In f32 on the CUDA cores
@@ -46,7 +75,7 @@
 // (128 x 50.7 KB = 6.5 MB written and read per step, resident in L2) is the
 // first thing a faster version removes, then tensor-core (3xTF32) products.
 // K2 does E times that work and traffic: at the sweep's E = 4, 512 CTAs
-// (3.9 waves on 132 SMs) and a ~30 us bound.
+// (3.9 waves on 132 SMs) and a ~30 us bound.  K3/K4 do k times K1/K2's.
 //
 // Arithmetic outside the matrix products uses explicitly rounded
 // operations (__fmul_rn / __fadd_rn: no FMA contraction), in the operation
@@ -167,21 +196,29 @@ __device__ __forceinline__ size_t b_off(const StepArgs& a, int l, int e) {
   return (size_t)e * a.dims[l + 1];
 }
 
-// kStageW: weights and biases staged in shared memory (a separate
-// instantiation, so that its products read through shared-memory loads)
-template <bool kStageW>
-__global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float* x,
-                                                          const float* y, const float* mask,
-                                                          int mask_stride, float* scratch) {
-  extern __shared__ float smem[];
+// A global load; kCG: cached in L2 only, for data that this launch may have
+// rewritten from another SM since this SM last read it.
+template <bool kCG>
+__device__ __forceinline__ float ld(const float* p) {
+  if constexpr (kCG) return __ldcg(p);
+  else return *p;
+}
+
+// The first pass for one work item: expert e's row tile t (batch rows
+// t*rows .. t*rows+rows-1).  Stages the tile, runs forward, masked SSE and
+// backward, and writes the item's partial dW/db, SSE and mask count to
+// scratch row e * n_tiles + t.  x, y, mask: expert e's batch.  kStageW:
+// weights and biases staged in shared memory (a separate instantiation, so
+// that its products read through shared-memory loads).
+template <bool kStageW, bool kCG>
+__device__ __forceinline__ void partials_item(const StepArgs& a, int e, int t, int n_tiles,
+                                              const float* x, const float* y,
+                                              const float* mask, float* scratch,
+                                              float* smem) {
   const int L = a.L, R = a.rows, F = a.dims[0], C = a.dims[L];
-  const int row0 = blockIdx.x * R;
-  const int e = blockIdx.y;
+  const int row0 = t * R;
   const int P = n_params(a);
-  float* part = scratch + ((size_t)e * gridDim.x + blockIdx.x) * (P + 2);
-  x += (size_t)e * a.B * F;
-  y += (size_t)e * a.B * C;
-  mask += (size_t)e * mask_stride;
+  float* part = scratch + ((size_t)e * n_tiles + t) * (P + 2);
 
   int gmax = 0;
   for (int l = 1; l <= L; ++l) gmax = max(gmax, a.dims[l]);
@@ -212,9 +249,9 @@ __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float
       const int n = a.dims[l] * a.dims[l + 1];
       const float* wg = a.w[l] + w_off(a, l, e);
       const float* bg = a.b[l] + b_off(a, l, e);
-      for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = wg[i];
+      for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = ld<kCG>(wg + i);
       p += n;
-      for (int i = threadIdx.x; i < a.dims[l + 1]; i += blockDim.x) p[i] = bg[i];
+      for (int i = threadIdx.x; i < a.dims[l + 1]; i += blockDim.x) p[i] = ld<kCG>(bg + i);
       p += a.dims[l + 1];
     }
   }
@@ -233,6 +270,11 @@ __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float
   auto bl = [&](int l) -> const float* {
     if constexpr (kStageW) return wl(l) + a.dims[l] * a.dims[l + 1];
     return a.b[l] + b_off(a, l, e);
+  };
+  // a read of a weight or bias: shared memory when staged, else global
+  auto rw = [&](const float* p) -> float {
+    if constexpr (kStageW) return *p;
+    else return ld<kCG>(p);
   };
   auto hl = [&](int l) -> float* {  // input of layer l
     if (l == 0) return xs;
@@ -258,9 +300,9 @@ __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float
     const float w0 = a.w0[l];
     mm4x4(R, dout, din,
           [&](int i, int k) { return hin[i * din + k]; },
-          [&](int k, int j) { return W[k * dout + j]; },
+          [&](int k, int j) { return rw(W + k * dout + j); },
           [&](int i, int j, float acc) {
-            const float u = __fmul_rn(w0, __fadd_rn(acc, bias[j]));
+            const float u = __fmul_rn(w0, __fadd_rn(acc, rw(bias + j)));
             float s, c;
             sincos_poly(u, &s, &c);
             hout[i * dout + j] = s;
@@ -277,9 +319,9 @@ __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float
     const float* bias = bl(L - 1);
     mm4x4(R, C, din,
           [&](int i, int k) { return hin[i * din + k]; },
-          [&](int k, int j) { return W[k * C + j]; },
+          [&](int k, int j) { return rw(W + k * C + j); },
           [&](int i, int j, float acc) {
-            const float z = __fadd_rn(acc, bias[j]);
+            const float z = __fadd_rn(acc, rw(bias + j));
             const float p = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z)));
             const float diff = __fmul_rn(__fsub_rn(p, ys[i * C + j]), ms[i]);
             gb[i * C + j] = __fmul_rn(diff, diff);
@@ -321,7 +363,7 @@ __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float
       float* gw = gn;
       mm4x4(R, din, dout,
             [&](int i, int k) { return gc[i * dout + k]; },
-            [&](int k, int j) { return W[j * dout + k]; },
+            [&](int k, int j) { return rw(W + j * dout + k); },
             [&](int i, int j, float acc) { gw[i * din + j] = __fmul_rn(acc, co[i * din + j]); });
     }
     __syncthreads();
@@ -329,26 +371,29 @@ __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float
   }
 }
 
-__global__ void step_adam(StepArgs a, const float* scratch, int n_cta, float* loss,
-                          float lr, float c1, float c2) {
+// The second pass for one parameter p of expert e: sum its partials over
+// the n_tiles items in tile order, scale by inv_scale (from the items' mask
+// counts, summed likewise) and apply Adam to it, its m and its v in place;
+// p == 0 also writes the expert's loss.  scratch: expert e's (n_tiles, P+2)
+// partials.
+template <bool kCG>
+__device__ __forceinline__ void adam_param(const StepArgs& a, int e, int p,
+                                           const float* scratch, int n_tiles, float* loss,
+                                           float lr, float c1, float c2) {
   const int P = n_params(a);
   const int S = P + 2;
   const int C = a.dims[a.L];
-  const int e = blockIdx.y;
-  scratch += (size_t)e * n_cta * S;
-  loss += e;
   float cnt = 0.0f;
-  for (int c = 0; c < n_cta; ++c) cnt = __fadd_rn(cnt, scratch[(size_t)c * S + P + 1]);
+  for (int c = 0; c < n_tiles; ++c)
+    cnt = __fadd_rn(cnt, ld<kCG>(scratch + (size_t)c * S + P + 1));
   const float inv_scale = __fdiv_rn(1.0f, __fmul_rn(fmaxf(cnt, 1.0f), (float)C));
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p == 0) {
     float sse = 0.0f;
-    for (int c = 0; c < n_cta; ++c) sse = __fadd_rn(sse, scratch[(size_t)c * S + P]);
+    for (int c = 0; c < n_tiles; ++c) sse = __fadd_rn(sse, ld<kCG>(scratch + (size_t)c * S + P));
     *loss = __fmul_rn(sse, inv_scale);
   }
-  if (p >= P) return;
   float g = 0.0f;
-  for (int c = 0; c < n_cta; ++c) g = __fadd_rn(g, scratch[(size_t)c * S + p]);
+  for (int c = 0; c < n_tiles; ++c) g = __fadd_rn(g, ld<kCG>(scratch + (size_t)c * S + p));
   g = __fmul_rn(g, inv_scale);
 
   // locate the parameter: layer by layer, weight then bias
@@ -369,13 +414,90 @@ __global__ void step_adam(StepArgs a, const float* scratch, int n_cta, float* lo
     }
     q -= nb;
   }
-  const float m_new = __fadd_rn(__fmul_rn(0.9f, *m), __fmul_rn(0.1f, g));
-  const float v_new = __fadd_rn(__fmul_rn(0.999f, *v), __fmul_rn(__fmul_rn(0.001f, g), g));
+  const float m_new = __fadd_rn(__fmul_rn(0.9f, ld<kCG>(m)), __fmul_rn(0.1f, g));
+  const float v_new =
+      __fadd_rn(__fmul_rn(0.999f, ld<kCG>(v)), __fmul_rn(__fmul_rn(0.001f, g), g));
   const float step = __fdiv_rn(__fmul_rn(lr, __fmul_rn(m_new, c1)),
                                __fadd_rn(sqrtf(__fmul_rn(v_new, c2)), 1e-8f));
-  *th = __fsub_rn(*th, step);
+  *th = __fsub_rn(ld<kCG>(th), step);
   *m = m_new;
   *v = v_new;
+}
+
+// K1/K2 pass 1: CTA (blockIdx.x, blockIdx.y) is item (expert y, tile x).
+template <bool kStageW>
+__global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float* x,
+                                                          const float* y, const float* mask,
+                                                          int mask_stride, float* scratch) {
+  extern __shared__ float smem[];
+  const int e = blockIdx.y;
+  const int F = a.dims[0], C = a.dims[a.L];
+  partials_item<kStageW, false>(a, e, blockIdx.x, gridDim.x, x + (size_t)e * a.B * F,
+                                y + (size_t)e * a.B * C, mask + (size_t)e * mask_stride,
+                                scratch, smem);
+}
+
+// K1/K2 pass 2: one thread per (parameter, expert y).
+__global__ void step_adam(StepArgs a, const float* scratch, int n_cta, float* loss,
+                          float lr, float c1, float c2) {
+  const int P = n_params(a);
+  const int e = blockIdx.y;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  adam_param<false>(a, e, p, scratch + (size_t)e * n_cta * (P + 2), n_cta, loss + e, lr, c1,
+                    c2);
+}
+
+// Grid-wide barrier over n_blocks co-resident CTAs: bar[0] counts
+// arrivals, bar[1] is the generation the last arrival advances.
+__device__ __forceinline__ void grid_sync(unsigned int* bar, unsigned int n_blocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned int* gen = bar + 1;
+    const unsigned int g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == n_blocks - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// K3/K4: k steps of E experts in one cooperative launch (see the header).
+// Strides in elements: *_es between two experts' batches, *_ss between two
+// steps' (mask_es = 0: one mask per step shared by the experts).  sched:
+// (k, 3) lr, c1, c2; loss: (k, E).
+template <bool kStageW>
+__global__ void __launch_bounds__(THREADS)
+    multi_step(StepArgs a, int E, int k, const float* x, long long x_es, long long x_ss,
+               const float* y, long long y_es, long long y_ss, const float* mask,
+               long long mask_es, long long mask_ss, float* scratch, int n_tiles,
+               const float* sched, float* loss, unsigned int* bar) {
+  extern __shared__ float smem[];
+  const int P = n_params(a);
+  const int items = E * n_tiles;
+  const int n_threads = gridDim.x * blockDim.x;
+  for (int s = 0; s < k; ++s) {
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int e = it / n_tiles;
+      partials_item<kStageW, true>(a, e, it - e * n_tiles, n_tiles, x + s * x_ss + e * x_es,
+                                   y + s * y_ss + e * y_es, mask + s * mask_ss + e * mask_es,
+                                   scratch, smem);
+    }
+    grid_sync(bar, gridDim.x);
+    const float lr = sched[3 * s], c1 = sched[3 * s + 1], c2 = sched[3 * s + 2];
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < E * P; i += n_threads) {
+      const int e = i / P;
+      adam_param<true>(a, e, i - e * P, scratch + (size_t)e * n_tiles * (P + 2), n_tiles,
+                       loss + (size_t)s * E + e, lr, c1, c2);
+    }
+    if (s + 1 < k) grid_sync(bar, gridDim.x);
+  }
 }
 
 }  // namespace
@@ -421,6 +543,48 @@ int lbdrn_fused_step(const StepArgs* args, int E, const float* x, const float* y
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   step_adam<<<grid2, 256, 0, s>>>(*args, scratch, n_cta, loss, lr, c1, c2);
+  return (int)cudaGetLastError();
+}
+
+// k training steps of E experts (E = 1: K3) in one cooperative launch of
+// min(E * n_tiles, CTAs resident at once) CTAs.  Strides as `multi_step`
+// takes them; sched: (k, 3) device table of lr, c1, c2; loss: (k, E)
+// step-major; bar: two zeroed uint32 words.  *grid receives the CTA count.
+// Returns 0 on success, else a CUDA error code (the cooperative launch's
+// own when the grid cannot be resident).
+int lbdrn_fused_multi_step(const StepArgs* args, int E, int k, const float* x,
+                           long long x_es, long long x_ss, const float* y, long long y_es,
+                           long long y_ss, const float* mask, long long mask_es,
+                           long long mask_ss, float* scratch, int n_tiles, int smem_bytes,
+                           const float* sched, float* loss, unsigned int* bar, void* stream,
+                           int* grid) {
+  static int smem_set[2] = {0, 0};  // opted-in size per instantiation
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int staged = args->stage_w ? 1 : 0;
+  const void* fn = staged ? (const void*)multi_step<true> : (const void*)multi_step<false>;
+  cudaError_t e;
+  if (smem_bytes > smem_set[staged]) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    smem_set[staged] = smem_bytes;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int items = E * n_tiles;
+  int n_blocks = per_sm * sms;
+  if (items < n_blocks) n_blocks = items;
+  *grid = n_blocks;
+  StepArgs a = *args;
+  void* kargs[] = {&a,    &E,       &k,       &x,       &x_es,    &x_ss,
+                   &y,    &y_es,    &y_ss,    &mask,    &mask_es, &mask_ss,
+                   &scratch, &n_tiles, &sched, &loss,   &bar};
+  e = cudaLaunchCooperativeKernel(fn, dim3(n_blocks), dim3(THREADS), kargs, smem_bytes, s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

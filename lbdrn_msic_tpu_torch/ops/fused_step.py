@@ -1,7 +1,9 @@
-"""Fused SIREN training step: one hand-written CUDA kernel on the card
-(`csrc/fused_step.cu`), its plain PyTorch version beside it, and the
-autodiff oracle; for one network (K1, `fused_train_step`) or for E
-independent networks in one launch (K2, `fused_expert_step`).
+"""Fused SIREN training step: one hand-written CUDA kernel source on the
+card (`csrc/fused_step.cu`), its plain PyTorch versions beside it, and the
+autodiff oracle; for one network (K1, `fused_train_step`), for E
+independent networks in one launch (K2, `fused_expert_step`), and k
+sequential steps of either in one persistent launch (K3
+`fused_multi_step`, K4 `fused_expert_multi_step`).
 
 One step performs, for one batch:
 
@@ -19,7 +21,7 @@ numerics) that `use_fused=False` trains with.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -216,6 +218,13 @@ def _kernel_lib():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
         ]
+        i64, ptr = ctypes.c_int64, ctypes.c_void_p
+        lib.lbdrn_fused_multi_step.restype = ctypes.c_int
+        lib.lbdrn_fused_multi_step.argtypes = [
+            ctypes.POINTER(_StepArgs), ctypes.c_int, ctypes.c_int,
+            ptr, i64, i64, ptr, i64, i64, ptr, i64, i64,
+            ptr, ctypes.c_int, ctypes.c_int, ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_int),
+        ]
         _smem_optin = lib.lbdrn_smem_optin()
         _lib = lib
     return _lib
@@ -230,39 +239,22 @@ def _check(t: torch.Tensor, shape, what: str, device: torch.device):
         raise ValueError(f"{what}: must be contiguous")
 
 
-def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
-            x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, lr: float, step: int,
-            mspec: ModelSpec, dim_out: int, loss_out: torch.Tensor | None, E: int | None):
-    """Check shapes and launch csrc/fused_step.cu once: one network
-    (`E=None`: unstacked leaves, x (B, F), mask (B,), 0-d loss) or E experts
-    (leaves with a leading E axis, x (E, B, F), mask (B,) shared or (E, B),
-    (E,) loss).  Returns the loss tensor."""
-    lib = _kernel_lib()
+def _step_args(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
+               B: int, F: int, mspec: ModelSpec, dim_out: int, lead: tuple,
+               dev: torch.device):
+    """Check the param and Adam-state leaves (each with the leading axes
+    `lead`: () for one network, (E,) for experts) and return the cached
+    (StepArgs, shared-memory bytes, row tiles, P) for them and batch B."""
     L = len(params.weights)
     if L > MAX_LAYERS or L != mspec.num_layers + 1:
         raise ValueError(f"unsupported layer count {L}")
-    lead = () if E is None else (E,)
-    B, F = x.shape[-2:]
     dims = [F] + [w.shape[-1] for w in params.weights]
     if dims[-1] != dim_out:
         raise ValueError(f"head width {dims[-1]} != dim_out {dim_out}")
-    dev = x.device
-    _check(x, (*lead, B, F), "x", dev)
-    _check(y, (*lead, B, dim_out), "y", dev)
-    if mask.dim() == 2 and E is not None:
-        _check(mask, (E, B), "mask", dev)
-        mask_stride = B
-    else:
-        _check(mask, (B,), "mask", dev)
-        mask_stride = 0
     for l in range(L):
         for st, nm in ((params, "param"), (m_state, "m"), (v_state, "v")):
             _check(st.weights[l], (*lead, dims[l], dims[l + 1]), f"{nm} weight {l}", dev)
             _check(st.biases[l], (*lead, dims[l + 1]), f"{nm} bias {l}", dev)
-    if loss_out is None:
-        loss_out = torch.empty(lead, dtype=torch.float32, device=dev)
-    else:
-        _check(loss_out, lead, "loss_out", dev)
 
     leaves = params.leaves() + m_state.leaves() + v_state.leaves()
     key = (tuple(t.data_ptr() for t in leaves), B, tuple(dims), mspec)
@@ -286,7 +278,33 @@ def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
         if len(_args_cache) > 64:
             _args_cache.clear()
         _args_cache[key] = hit
-    args, smem, n_cta, P = hit
+    return hit
+
+
+def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
+            x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, lr: float, step: int,
+            mspec: ModelSpec, dim_out: int, loss_out: torch.Tensor | None, E: int | None):
+    """Check shapes and launch csrc/fused_step.cu once: one network
+    (`E=None`: unstacked leaves, x (B, F), mask (B,), 0-d loss) or E experts
+    (leaves with a leading E axis, x (E, B, F), mask (B,) shared or (E, B),
+    (E,) loss).  Returns the loss tensor."""
+    lib = _kernel_lib()
+    lead = () if E is None else (E,)
+    B, F = x.shape[-2:]
+    dev = x.device
+    _check(x, (*lead, B, F), "x", dev)
+    _check(y, (*lead, B, dim_out), "y", dev)
+    if mask.dim() == 2 and E is not None:
+        _check(mask, (E, B), "mask", dev)
+        mask_stride = B
+    else:
+        _check(mask, (B,), "mask", dev)
+        mask_stride = 0
+    args, smem, n_cta, P = _step_args(params, m_state, v_state, B, F, mspec, dim_out, lead, dev)
+    if loss_out is None:
+        loss_out = torch.empty(lead, dtype=torch.float32, device=dev)
+    else:
+        _check(loss_out, lead, "loss_out", dev)
 
     n_exp = 1 if E is None else E
     scratch = torch.empty((n_exp, n_cta, P + 2), dtype=torch.float32, device=dev)
@@ -299,6 +317,56 @@ def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
     if rc != 0:
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
     return loss_out
+
+
+def _launch_multi(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
+                  X: torch.Tensor, Y: torch.Tensor, masks: torch.Tensor,
+                  lrs: Sequence[float], step0: int, mspec: ModelSpec, dim_out: int,
+                  loss_out: torch.Tensor | None, E: int | None):
+    """Check shapes and launch the multi-step kernel once, for k steps: one
+    network (`E=None`: X (k, B, F), (k,) losses) or E experts (X (k, E, B,
+    F) step-major, (k, E) losses); masks (k, B), shared by the experts.
+    Returns (losses, CTAs in the cooperative grid)."""
+    lib = _kernel_lib()
+    lead = () if E is None else (E,)
+    k = X.shape[0]
+    B, F = X.shape[-2:]
+    dev = X.device
+    if k < 1 or len(lrs) != k:
+        raise ValueError(f"{len(lrs)} learning rates for {k} steps")
+    _check(X, (k, *lead, B, F), "X", dev)
+    _check(Y, (k, *lead, B, dim_out), "Y", dev)
+    _check(masks, (k, B), "masks", dev)
+    args, smem, n_tiles, P = _step_args(params, m_state, v_state, B, F, mspec, dim_out, lead,
+                                        dev)
+    if loss_out is None:
+        loss_out = torch.empty((k, *lead), dtype=torch.float32, device=dev)
+    else:
+        _check(loss_out, (k, *lead), "loss_out", dev)
+
+    # per-step lr, c1, c2 in float32, as `fused_train_step` computes them;
+    # a fresh pinned buffer per launch (the host allocator keeps it until
+    # the copy has run), so nothing syncs
+    host = torch.empty((k, 3), dtype=torch.float32, pin_memory=True)
+    table = host.numpy()
+    for s, lr in enumerate(lrs):
+        table[s] = (np.float32(lr), *bias_corrections(step0 + s))
+    sched = host.to(dev, non_blocking=True)
+    n_exp = 1 if E is None else E
+    scratch = torch.empty((n_exp, n_tiles, P + 2), dtype=torch.float32, device=dev)
+    barrier = torch.zeros(2, dtype=torch.int32, device=dev)
+    grid = ctypes.c_int(0)
+    rc = lib.lbdrn_fused_multi_step(
+        ctypes.byref(args), n_exp, k,
+        X.data_ptr(), B * F, n_exp * B * F,
+        Y.data_ptr(), B * dim_out, n_exp * B * dim_out,
+        masks.data_ptr(), 0, B,
+        scratch.data_ptr(), n_tiles, smem, sched.data_ptr(), loss_out.data_ptr(),
+        barrier.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(grid),
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused multi-step kernel launch failed: CUDA error {rc}")
+    return loss_out, grid.value
 
 
 def fused_train_step(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
@@ -378,6 +446,102 @@ def fused_expert_step(params: SirenParams, m_state: SirenParams, v_state: SirenP
 
 
 fused_expert_step.launches = 0
+
+
+def fused_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs, step0,
+                           mspec: ModelSpec, dim_out: int, loss_out=None):
+    """K3's function in plain torch ops: k chained `fused_train_step_plain`
+    calls, step s at Adam step step0 + s with lrs[s] (in place).  Returns
+    (params, m, v, losses (k,))."""
+    if loss_out is None:
+        loss_out = torch.empty((X.shape[0],), dtype=torch.float32, device=X.device)
+    for s, lr in enumerate(lrs):
+        fused_train_step_plain(params, m_state, v_state, X[s], Y[s], masks[s], lr, step0 + s,
+                               mspec, dim_out, loss_out=loss_out[s])
+    return params, m_state, v_state, loss_out
+
+
+def fused_multi_step(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
+                     X: torch.Tensor, Y: torch.Tensor, masks: torch.Tensor,
+                     lrs: Sequence[float], step0: int, mspec: ModelSpec, dim_out: int,
+                     loss_out: torch.Tensor | None = None):
+    """k sequential fused training steps in one launch, in place.
+
+    X: (k, B, padded_in) f32; Y: (k, B, dim_out) f32; masks: (k, B) f32;
+    `lrs`: the k learning rates, host numbers; `step0`: the 1-indexed Adam
+    step of the first step (each step's bias corrections are computed on
+    the host in float32, as `fused_train_step` computes them).  `loss_out`:
+    optional (k,) f32 tensor the losses are written into.  Returns
+    (params, m_state, v_state, losses (k,)).
+
+    The function of k `fused_train_step` calls, and on the card
+    bit-identical to them.  CUDA tensors launch the persistent cooperative
+    kernel of csrc/fused_step.cu once (raising if it cannot build or
+    launch; it never falls back to per-step launches); CPU tensors take
+    `fused_multi_step_plain`.  Any B: unlike the TPU kernel, which needs
+    the whole batch in one VMEM tile, the card's kernel tiles the batch.
+    """
+    if X.device.type == "cpu":
+        return fused_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs, step0,
+                                      mspec, dim_out, loss_out)
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    loss_out, fused_multi_step.grid = _launch_multi(
+        params, m_state, v_state, X, Y, masks, lrs, step0, mspec, dim_out, loss_out, None)
+    fused_multi_step.launches += 1
+    return params, m_state, v_state, loss_out
+
+
+fused_multi_step.launches = 0
+fused_multi_step.grid = 0  # CTAs in the last launch's cooperative grid
+
+
+def fused_expert_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs, step0,
+                                  mspec: ModelSpec, dim_out: int, loss_out=None):
+    """K4's function in plain torch ops: k chained `fused_expert_step_plain`
+    calls with the step's (B,) mask shared by the experts (in place).
+    Returns (params, m, v, losses (k, E))."""
+    if loss_out is None:
+        loss_out = torch.empty(X.shape[:2], dtype=torch.float32, device=X.device)
+    for s, lr in enumerate(lrs):
+        fused_expert_step_plain(params, m_state, v_state, X[s], Y[s], masks[s], lr, step0 + s,
+                                mspec, dim_out, loss_out=loss_out[s])
+    return params, m_state, v_state, loss_out
+
+
+def fused_expert_multi_step(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
+                            X: torch.Tensor, Y: torch.Tensor, masks: torch.Tensor,
+                            lrs: Sequence[float], step0: int, mspec: ModelSpec,
+                            dim_out: int, loss_out: torch.Tensor | None = None):
+    """k sequential fused steps of E independent experts in one launch.
+
+    params/m/v leaves carry a leading expert axis, as for
+    `fused_expert_step`; X: (k, E, B, padded_in) step-major (the JAX
+    kernel's layout); Y: (k, E, B, dim_out); masks: (k, B), step s's mask
+    shared by every expert; lrs, step0 as for `fused_multi_step`.
+    `loss_out`: optional (k, E) f32 tensor (step-major, where the JAX kernel
+    returns (E, k)).  Returns (params, m_state, v_state, losses (k, E)).
+
+    The function of k `fused_expert_step` calls, and on the card
+    bit-identical to them; expert e is `fused_multi_step` on its slices.
+    CUDA tensors launch the kernel of `fused_multi_step` with an expert
+    axis (once; raising if it cannot build or launch); CPU tensors take
+    `fused_expert_multi_step_plain`.
+    """
+    if X.device.type == "cpu":
+        return fused_expert_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs,
+                                             step0, mspec, dim_out, loss_out)
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    loss_out, fused_expert_multi_step.grid = _launch_multi(
+        params, m_state, v_state, X, Y, masks, lrs, step0, mspec, dim_out, loss_out,
+        X.shape[1])
+    fused_expert_multi_step.launches += 1
+    return params, m_state, v_state, loss_out
+
+
+fused_expert_multi_step.launches = 0
+fused_expert_multi_step.grid = 0
 
 
 def reference_train_step(params, m_state, v_state, x, y, mask, lr, step,

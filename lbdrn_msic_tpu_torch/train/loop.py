@@ -16,10 +16,13 @@ Every step of `fit` is one row gather from the feature cache and one call
 of the fused step (`ops/fused_step.py`: kernel K1 on the card) or, with
 `use_fused=False`, of the exact autograd step; every step of
 `fit_rate_experts` is one gather per expert from its tap matrix and one
-call of the expert step (kernel K2) for all experts.  Neither loop syncs
-with the device inside an epoch: per-step losses land in a preallocated
-device tensor, and the best-params rule reads one scalar per evaluated
-epoch (per expert).
+call of the expert step (kernel K2) for all experts.  With `multi_k`, the
+fused loops run each epoch in chunks of k steps instead: one gather of the
+chunk's batches and one multi-step call (K3, or K4 for experts), the same
+function as k single steps and, on the card, bit-identical to them.
+Neither loop syncs with the device inside an epoch: per-step losses land
+in a preallocated device tensor, and the best-params rule reads one scalar
+per evaluated epoch (per expert).
 
 Randomness (init params, epoch permutations) is drawn from a CPU
 `torch.Generator`, so CPU and card runs see the same numbers; tests inject
@@ -56,10 +59,15 @@ from lbdrn_msic_tpu_torch.models.siren import (
     unstack_params,
 )
 from lbdrn_msic_tpu_torch.ops.fused_step import (
+    fused_expert_multi_step,
     fused_expert_step,
+    fused_multi_step,
     fused_train_step,
     reference_train_step,
 )
+
+# the staged batches of one multi-step chunk stay under this many bytes
+MULTI_STEP_BYTES = 512 << 20
 
 
 @dataclasses.dataclass
@@ -142,6 +150,29 @@ def _batch_geometry(tspec: TrainSpec, n: int):
     return bs, g, n_g, bpg, -(-n_g // bpg)
 
 
+def multi_step_k(multi_k: Optional[int], use_fused: bool, E: int, bs: int,
+                 padded_in: int, steps: int, per_expert_masks: bool = False) -> int:
+    """Steps per multi-step call (0: one step per call), by the JAX
+    package's rule (train/loop.py:333-339 for `fit`, E = 1; :739-752 for
+    `fit_rate_experts`): 0 unless `use_fused`, or with per-expert masks
+    (the kernel shares one mask per step); else `multi_k` capped so that
+    the staged (k, E, bs, padded_in) f32 batches stay under
+    MULTI_STEP_BYTES, and at one epoch; below 2, 0.  The JAX rule also
+    needs the batch to fit one TPU VMEM tile (`pick_tile(bs) == bs`); the
+    card's kernel tiles any batch, so that gate is dropped."""
+    if not use_fused or not multi_k or per_expert_masks:
+        return 0
+    cap = max(1, MULTI_STEP_BYTES // (E * bs * padded_in * 4))
+    k = min(multi_k, cap, steps)
+    return k if k >= 2 else 0
+
+
+def _chunks(steps: int, k: int):
+    """An epoch's (first step, length) chunks: floor(steps / k) of k steps,
+    then the remainder."""
+    return [(s0, min(k, steps - s0)) for s0 in range(0, steps, k)]
+
+
 def _epoch_batches(epoch: int, perms, generator, n_g: int, n: int, g: int, bpg: int,
                    steps: int, dev: torch.device):
     """This epoch's permutation (injected, else drawn from `generator`),
@@ -179,6 +210,7 @@ def fit(
     W: int,
     C: int,
     use_fused: Optional[bool] = None,
+    multi_k: Optional[int] = None,
     init: Optional[SirenParams] = None,
     perms: Optional[Sequence[np.ndarray]] = None,
     device=None,
@@ -192,6 +224,9 @@ def fit(
     permutations; `init` / `perms` (one permutation of the granule ids per
     epoch) replace the draws when given.  `use_fused` (default: on CUDA)
     trains with the fused step, else with the exact autograd step.
+    `multi_k` (fused only; resolved by `multi_step_k`): k steps per
+    `fused_multi_step` call (kernel K3), each epoch split by `_chunks`, the
+    chunk's batches gathered at once; the result is the per-step fit's.
     """
     dev = resolve_device(device)
     if use_fused is None:
@@ -204,13 +239,14 @@ def fit(
         n = H * W
         bs, g, n_g, bpg, steps = _batch_geometry(tspec, n)
         block_rows = feature_block_rows(H, W)
+        k = multi_step_k(multi_k, use_fused, 1, bs, padded_in, steps)
 
         x_cache = build_feature_cache(plane, plane_scale, fspec, H, W, padded_in, g=g)
         y_all = build_label_matrix(labels, n_g * g).to(torch.float32) * np.float32(label_scale)
         xg = x_cache.view(n_g, g * padded_in)
         yg = y_all.view(n_g, g * C)
-        xbuf = torch.empty((bpg, g * padded_in), dtype=torch.float32, device=dev)
-        ybuf = torch.empty((bpg, g * C), dtype=torch.float32, device=dev)
+        xbuf = torch.empty((max(k, 1) * bpg, g * padded_in), dtype=torch.float32, device=dev)
+        ybuf = torch.empty((max(k, 1) * bpg, g * C), dtype=torch.float32, device=dev)
 
         if init is None:
             init = siren_init(generator, dim_in, C, mspec, pad_input_to=padded_in)
@@ -225,13 +261,24 @@ def fit(
         count = 0
         for epoch in range(tspec.epochs):
             gi, masks = _epoch_batches(epoch, perms, generator, n_g, n, g, bpg, steps, dev)
-            for s in range(steps):
-                torch.index_select(xg, 0, gi[s], out=xbuf)
-                torch.index_select(yg, 0, gi[s], out=ybuf)
-                step_fn(params, m_state, v_state, xbuf.view(bs, padded_in),
-                        ybuf.view(bs, C), masks[s], schedule(count), count + 1,
-                        mspec, C, loss_out=step_losses[epoch, s])
-                count += 1
+            if k:
+                for s0, kc in _chunks(steps, k):
+                    ids = gi[s0 : s0 + kc].reshape(-1)
+                    xb = torch.index_select(xg, 0, ids, out=xbuf[: kc * bpg])
+                    yb = torch.index_select(yg, 0, ids, out=ybuf[: kc * bpg])
+                    fused_multi_step(params, m_state, v_state, xb.view(kc, bs, padded_in),
+                                     yb.view(kc, bs, C), masks[s0 : s0 + kc],
+                                     [schedule(count + s) for s in range(kc)], count + 1,
+                                     mspec, C, loss_out=step_losses[epoch, s0 : s0 + kc])
+                    count += kc
+            else:
+                for s in range(steps):
+                    torch.index_select(xg, 0, gi[s], out=xbuf)
+                    torch.index_select(yg, 0, gi[s], out=ybuf)
+                    step_fn(params, m_state, v_state, xbuf.view(bs, padded_in),
+                            ybuf.view(bs, C), masks[s], schedule(count), count + 1,
+                            mspec, C, loss_out=step_losses[epoch, s])
+                    count += 1
 
             if tspec.epochs == 1:
                 best = params.map(torch.clone)
@@ -298,9 +345,14 @@ def fit_rate_experts(
     full-image MSE (from its tap matrix, values bit-identical to `fit`'s
     feature cache) decides its own strict-improvement best params.
 
+    `multi_k` (fused only; resolved by `multi_step_k`): k steps of every
+    expert per `fused_expert_multi_step` call (kernel K4), each epoch split
+    by `_chunks`, the chunk's batches staged at once in (k, E, bs,
+    padded_in); the result is the per-step fit's.
+
     Returns a FitResult whose fields carry a leading expert axis.  Banded
-    staging, cross-image experts (`img_of`), bucket masks (`hws`) and the
-    multi-step path (`multi_k`) are not ported and raise.
+    staging, cross-image experts (`img_of`) and bucket masks (`hws`) are
+    not ported and raise.
     """
     if staging == "banded":
         raise NotImplementedError("banded staging is not ported yet (ROADMAP: banded staging)")
@@ -312,9 +364,6 @@ def fit_rate_experts(
     if hws is not None:
         raise NotImplementedError(
             "per-expert bucket masks (hws) are not ported yet (ROADMAP: bucketing)")
-    if multi_k:
-        raise NotImplementedError(
-            "the multi-step path (multi_k) is not ported yet (ROADMAP: K3 and K4)")
     dev = resolve_device(device)
     if use_fused is None:
         use_fused = dev.type == "cuda"
@@ -327,6 +376,7 @@ def fit_rate_experts(
         n = H * W
         bs, g, n_g, bpg, steps = _batch_geometry(tspec, n)
         block_rows = feature_block_rows(H, W)
+        k = multi_step_k(multi_k, use_fused, E, bs, padded_in, steps, hws is not None)
         if tap_dtypes is None:
             max_img = int(img.max())
             tap_dtypes = [tap_matrix_dtype(max_img >> K, fspec.relative) for K in Ks]
@@ -341,10 +391,21 @@ def fit_rate_experts(
         kmasks = kmasks.view(E, 1, 1)
         lscales = torch.tensor([lsb_scale(K) for K in Ks], dtype=torch.float32, device=dev)
         lscales = lscales.view(E, 1, 1)
-        xbuf = torch.zeros((E, bs, padded_in), dtype=torch.float32, device=dev)
-        lbuf = torch.empty((bpg, g * C), dtype=torch.int32, device=dev)
-        ybits = torch.empty((E, bs, C), dtype=torch.int32, device=dev)
-        ybuf = torch.empty((E, bs, C), dtype=torch.float32, device=dev)
+        # the staged batches of one step, or of a k-step chunk: (k, E, ...)
+        kb = max(k, 1)
+        xbuf = torch.zeros((kb, E, bs, padded_in), dtype=torch.float32, device=dev)
+        lbuf = torch.empty((kb * bpg, g * C), dtype=torch.int32, device=dev)
+        ybits = torch.empty((kb, E, bs, C), dtype=torch.int32, device=dev)
+        ybuf = torch.empty((kb, E, bs, C), dtype=torch.float32, device=dev)
+
+        def stage(ids, kc):
+            """The batches of kc steps (granule ids (kc * bpg,)) into the
+            buffers' first kc entries."""
+            for e in range(E):
+                staged_features(taps[e], scales[e], ids, out=xbuf[:kc, e, :, :dim_in])
+            torch.index_select(raw, 0, ids, out=lbuf[: kc * bpg])
+            torch.bitwise_and(lbuf[: kc * bpg].view(kc, 1, bs, C), kmasks, out=ybits[:kc])
+            ybuf[:kc].copy_(ybits[:kc]).mul_(lscales)
 
         # the eval's inputs and labels, one row block at a time
         nb = block_rows * W
@@ -373,15 +434,21 @@ def fit_rate_experts(
         count = 0
         for epoch in range(tspec.epochs):
             gi, masks = _epoch_batches(epoch, perms, generator, n_g, n, g, bpg, steps, dev)
-            for s in range(steps):
-                for e in range(E):
-                    staged_features(taps[e], scales[e], gi[s], out=xbuf[e, :, :dim_in])
-                torch.index_select(raw, 0, gi[s], out=lbuf)
-                torch.bitwise_and(lbuf.view(1, bs, C), kmasks, out=ybits)
-                ybuf.copy_(ybits).mul_(lscales)
-                step_fn(params, m_state, v_state, xbuf, ybuf, masks[s], schedule(count),
-                        count + 1, mspec, C, loss_out=losses[epoch, s])
-                count += 1
+            if k:
+                for s0, kc in _chunks(steps, k):
+                    stage(gi[s0 : s0 + kc].reshape(-1), kc)
+                    fused_expert_multi_step(params, m_state, v_state, xbuf[:kc], ybuf[:kc],
+                                            masks[s0 : s0 + kc],
+                                            [schedule(count + s) for s in range(kc)],
+                                            count + 1, mspec, C,
+                                            loss_out=losses[epoch, s0 : s0 + kc])
+                    count += kc
+            else:
+                for s in range(steps):
+                    stage(gi[s], 1)
+                    step_fn(params, m_state, v_state, xbuf[0], ybuf[0], masks[s],
+                            schedule(count), count + 1, mspec, C, loss_out=losses[epoch, s])
+                    count += 1
 
             if tspec.epochs == 1:
                 best = params.map(torch.clone)

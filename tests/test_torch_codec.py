@@ -1,6 +1,8 @@
 """Port codec vs the JAX package's: headers byte-identical, streams
 cross-decode both ways, port streams deterministic."""
 
+import struct
+
 import numpy as np
 import pytest
 import torch
@@ -91,6 +93,27 @@ def test_pick_staging_rule():
         ref, _ = jcodec.pick_staging(H, W, C, 127, jfs, jts, warn=False)
         assert got == ref
     assert codec.pick_staging(2048, 2048, 4, 127, fs, ts) == "cached"
+
+
+@pytest.mark.parametrize("c,h,chunk_rows", [(255, 0x7FFFFFFF, 1), (1, 0x7FFFFFFF, 2),
+                                            (255, 0x7FFFFFFF, 0x7FFFFFFF)])
+def test_lpc_v2_crafted_header_rejected(c, h, chunk_rows):
+    """A v2 header whose chunk table (c * ceil(h / chunk_rows) entries)
+    overflows 32-bit arithmetic or outruns the stream must fail the parse:
+    `decode` and `chunk_info` raise instead of crashing.  A real v2 stream
+    still parses."""
+    from lbdrn_msic_tpu_torch.codecs import lpc
+
+    head = b"LLPC" + struct.pack("<BBBIIIH", 2, 2, c, h, 16, chunk_rows, 4095)
+    bad = head + bytes(64)
+    with pytest.raises(ValueError):
+        lpc.decode(bad)
+    with pytest.raises(ValueError):
+        lpc.chunk_info(bad)
+    msb = (np.arange(3 * 40 * 24, dtype=np.uint16) % 97).reshape(3, 40, 24)
+    good = lpc.encode(msb, chunk_rows=16)
+    assert lpc.chunk_info(good) == (3, 40, 24, 2, 16, 3, 96)
+    assert np.array_equal(lpc.decode(good), msb)
 
 
 def test_unported_paths_raise(scene):

@@ -280,10 +280,16 @@ def test_unported_sweep_paths_raise(scene, monkeypatch):
     t = cfgs[0].train
     args = (torch.from_numpy(scene.astype(np.int32)), (4, 5), torch.Generator(),
             FeatureSpec(), ModelSpec(), t, 64, 56, 4)
-    for kw in ({"staging": "banded"}, {"img_of": (0, 0)}, {"hws": object()},
-               {"multi_k": 4}):
+    for kw in ({"staging": "banded"}, {"img_of": (0, 0)}, {"hws": object()}):
         with pytest.raises(NotImplementedError):
             loop.fit_rate_experts(*args, device="cpu", **kw)
+    # the multi-step path is ported: 7 steps an epoch as a 4-step chunk and
+    # a 3-step one, bit for bit the per-step fit
+    fits = [loop.fit_rate_experts(*args[:2], torch.Generator().manual_seed(1), *args[3:],
+                                  use_fused=True, device="cpu", **kw)
+            for kw in ({"multi_k": 4}, {})]
+    assert torch.equal(fits[0].step_losses, fits[1].step_losses)
+    assert fits[0].best_mse == fits[1].best_mse
     with pytest.raises(ValueError):
         loop.fit_rate_experts(*args, staging="cached", device="cpu")
     # the full tap matrices over budget -> banded staging: not ported
