@@ -45,8 +45,25 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            timed rounds, interleaved; exactly epochs x ceil(steps / k)
            K3 / K4 launches (0 single-step ones), or epochs x steps K1 / K2
            at multi_k=0; every chunked fit bit-identical to multi_k=0
-Then the kernels line (K1-K4), the card line, and the final status line.  Exits
-non-zero without a result when CUDA is absent or the package is missing.
+  mm_dtype K1-K4 at mm_dtype "bfloat16" against their plain versions (bench
+           shape; K1 also wide): one step's m and v within 1e-5 of the bf16
+           plain step's and at least 10x farther from the f32 plain step's;
+           K3 / K4 bit for bit chained K1 / K2 at bf16 (the first of those
+           held as one step is) and within the JAX bf16 tier (2e-2); then the counterpart of scripts/profiling/mm_ab.py: `fit` at the
+           bench config with mm_dtype None and "bfloat16", one warm and two
+           timed rounds each, interleaved: seconds and best MSE
+  kernel_prof  K5, the nine step-anatomy probes of
+           profiling/kernel_prof.py: each variant's kernel against its plain
+           version from the same state, one step and a 5-step chain, at a
+           tolerance per product (f32, TF32, 3xTF32, bf16); fwd_notrans
+           leaves params bit-unchanged, full_t is full_dg bit for bit,
+           tile2048 agrees with full_dg to summation order; then the
+           profiling path itself, variant by variant with the counts
+           zeroed before it: three 512-step runs (median device time)
+           beside the bound and the plain time, and the launches it made
+Then the kernels line (K1-K4, K5 per variant), the card line, and the final
+status line.  Exits non-zero without a result when CUDA is absent or the
+package is missing.
 """
 
 from __future__ import annotations
@@ -70,15 +87,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, stdout=subprocess.PIPE, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-
-
-# peak rates for the bound (NVIDIA data sheets, dense, at the full power
-# limit): f32 on the CUDA cores and HBM bandwidth
-PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
-
-
-def peaks(name: str):
-    return PEAKS["pcie" if "PCIE" in name.upper() else "sxm"]
 
 
 def step_cost(B: int, dims, P: int):
@@ -145,15 +153,22 @@ def check_step(k_state, k_loss, p_state, p_loss, lr: float = 1e-3):
     return err, n_ill
 
 
-def kernel_entry(name: str, replaces: str, card: str, ops: float, nbytes: float,
-                 ms: float, plain_ms: float, max_err: float) -> dict:
+def kernel_entry(name: str, replaces: str, card: str, ops, nbytes: float,
+                 ms: float, plain_ms: float, max_err: float,
+                 source: str = "lbdrn_msic_tpu_torch/csrc/fused_step.cu") -> dict:
     """One kernel's entry of the kernels line; `launches` is filled in by
-    the main-path phase that drives it."""
-    peak_ops, peak_bw = peaks(card)
-    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / peak_bw * 1e3
+    the main-path phase that drives it.  `ops`: f32 CUDA-core operations,
+    or {unit: operations} with units of `profiling.PEAKS` ("f32", "tf32",
+    "bf16"), each at its own peak (the units run side by side, so the
+    slowest bounds)."""
+    from lbdrn_msic_tpu_torch.profiling import peaks
+
+    pk = peaks(card)
+    ops = ops if isinstance(ops, dict) else {"f32": ops}
+    t_ops = max(n / pk[unit] for unit, n in ops.items()) * 1e3
+    t_bytes = nbytes / pk["hbm"] * 1e3
     return {
-        "name": name, "route": "cuda",
-        "source": "lbdrn_msic_tpu_torch/csrc/fused_step.cu",
+        "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
         "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes),
@@ -558,6 +573,320 @@ def phase_multi_k(card: str, profile: bool, k3, k4):
                           row["seconds"])
 
 
+def mv_dist(st_a, st_b) -> float:
+    """The largest |m_a - m_b| or |v_a - v_b| over the largest |m_b| or
+    |v_b| (each of m and v against its own largest)."""
+    out = 0.0
+    for ka, kb in ((st_a[1], st_b[1]), (st_a[2], st_b[2])):
+        scale = max(float(t.abs().max()) for t in kb.leaves()) or 1.0
+        for a, r in zip(ka.leaves(), kb.leaves()):
+            out = max(out, float((a - r).abs().max()) / scale)
+    return out
+
+
+def check_bf16(what: str, k_state, k_loss, p_state, p_loss, f_state=None, n_steps: int = 1,
+               lr: float = 1e-3):
+    """Steps at mm_dtype "bfloat16" against the plain version's from the
+    same state: the same rounded operands, but a last-bit f32 difference
+    upstream (summation order) can flip an operand's bf16 rounding (2^-8
+    relative).  Losses at rtol 1e-4, params within 2*lr a step.  One step
+    (n_steps = 1): m and v within 1e-5 of the largest (measured <= 7e-7 on
+    an H100), and, against `f_state`, the f32 plain step from the same
+    state, at least 10x farther (the bf16 gradient is ~3e-3 of the largest
+    from the f32 one), so that a kernel which skips the bf16 rounding
+    fails; params held tightly where |g| is above the noise (the update is
+    ~lr * sign(g)).  k chained steps: m and v within 2e-2 (the JAX bf16
+    tier, tests/test_fused_step.py:166), since past step 1 the update
+    follows the gradients' ratios and so their bf16 noise.  Returns (max
+    abs param difference, m/v distance to the bf16 plain step, to the f32
+    one or None)."""
+    import torch
+
+    msg = lambda m: f"{what}: {m}"
+    torch.testing.assert_close(k_loss, p_loss, rtol=1e-4, atol=0, msg=msg)
+    mv = mv_dist(k_state, p_state)
+    mv_f32 = None
+    if n_steps == 1:
+        assert f_state is not None
+        mv_f32 = mv_dist(k_state, f_state)
+        assert mv <= 1e-5 and mv_f32 >= 10 * mv, (what, "bf16 vs plain", mv, "vs f32", mv_f32)
+    else:
+        assert mv <= 2e-2, (what, mv)
+    (kp, _, _), (pp, pm, _) = k_state, p_state
+    gscale = max(float(t.abs().max()) for t in pm.leaves())
+    err = 0.0
+    for a, r, m in zip(kp.leaves(), pp.leaves(), pm.leaves()):
+        if n_steps == 1:
+            well = m.abs() >= 2e-2 * gscale
+            torch.testing.assert_close(a[well], r[well], rtol=2e-4, atol=1e-6, msg=msg)
+        err = max(err, float((a - r).abs().max()))
+    assert err <= 2 * lr * n_steps, (what, err)
+    return err, mv, mv_f32
+
+
+def phase_mm_dtype(card: str, fits: bool):
+    """K1-K4 at mm_dtype "bfloat16" against their plain versions, and (with
+    `fits`) the counterpart of scripts/profiling/mm_ab.py."""
+    import numpy as np
+    import torch
+
+    from lbdrn_msic_tpu_torch.core.config import ModelSpec
+    from lbdrn_msic_tpu_torch.models.siren import init_params, pad_dim, stack_params
+    from lbdrn_msic_tpu_torch.ops import fused_step as fs
+
+    bf = "bfloat16"
+    mspec, wide = ModelSpec(), ModelSpec(128, 3)
+    C, dim_in, B = 4, 100, 8192
+    F = pad_dim(dim_in)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    clone = lambda st: tuple(p.map(torch.clone) for p in st)
+
+    def state(spec, c, E):
+        nets = [init_params(torch.Generator().manual_seed(e), dim_in, c, spec, pad_input_to=F)
+                for e in range(E or 1)]
+        p = (nets[0] if E is None else stack_params(nets)).to(dev)
+        return p, p.map(torch.zeros_like), p.map(torch.zeros_like)
+
+    def same(st_a, st_b):
+        return all(torch.equal(a, b) for pa, pb in zip(st_a, st_b)
+                   for a, b in zip(pa.leaves(), pb.leaves()))
+
+    cases = []
+    for name, E, k, b, masked, spec, c in (
+            ("k1_full", None, 0, B, False, mspec, C),
+            ("k1_wide_ragged_masked", None, 0, 1000, True, wide, 8),
+            ("k2_full", 4, 0, B, False, mspec, C),
+            ("k3_full", None, 8, B, False, mspec, C),
+            ("k4_full", 4, 4, B, False, mspec, C)):
+        lead = ((k,) if k else ()) + ((E,) if E else ())
+        x = np.zeros((*lead, b, F), np.float32)
+        x[..., :dim_in] = rng.uniform(-1, 1, (*lead, b, dim_in))
+        y = (1 / (1 + np.exp(-rng.standard_normal((*lead, b, c))))).astype(np.float32)
+        mask = np.ones((k, b) if k else (b,), np.float32)
+        if masked:
+            mask[rng.random(mask.shape) < 0.2] = 0.0
+        x, y, mask = (torch.from_numpy(a).to(dev) for a in (x, y, mask))
+        kern, plain, single, single_plain = {
+            (False, False): (fs.fused_train_step, fs.fused_train_step_plain, None, None),
+            (True, False): (fs.fused_expert_step, fs.fused_expert_step_plain, None, None),
+            (False, True): (fs.fused_multi_step, fs.fused_multi_step_plain, fs.fused_train_step,
+                            fs.fused_train_step_plain),
+            (True, True): (fs.fused_expert_multi_step, fs.fused_expert_multi_step_plain,
+                           fs.fused_expert_step, fs.fused_expert_step_plain)}[E is not None, k > 0]
+        sched = ([1e-3] * k, 1) if k else (1e-3, 1)
+        s0 = state(spec, c, E)
+        kst, pst = clone(s0), clone(s0)
+        n0 = kern.launches
+        *_, kl = kern(*kst, x, y, mask, *sched, spec, c, mm_dtype=bf)
+        assert kern.launches == n0 + 1
+        *_, pl = plain(*pst, x, y, mask, *sched, spec, c, mm_dtype=bf)
+        torch.cuda.synchronize()
+        row = {"case": name, "E": E or 1, "k": k or 1, "B": b,
+               "widths": [spec.base_channel, spec.num_layers, c], "loss": kl.tolist(),
+               "loss_plain": pl.tolist()}
+        if k:
+            # one bf16 launch is k chained bf16 single-step launches, bit for
+            # bit, and the first of those is held as a single step is below
+            err, mv, _ = check_bf16(name, kst, kl, pst, pl, n_steps=k)
+            cst = clone(s0)
+            cl = torch.empty_like(kl)
+            for st in range(k):
+                single(*cst, x[st], y[st], mask[st], 1e-3, 1 + st, spec, c, loss_out=cl[st],
+                       mm_dtype=bf)
+                if st == 0:
+                    first = clone(cst), cl[0].clone()
+            torch.cuda.synchronize()
+            assert torch.equal(kl, cl) and same(kst, cst), (name, "bf16 multi-step != chained")
+            row["bit_identical_to_chained_single_steps"] = True
+            kst, kl, s_args = first[0], first[1], (x[0], y[0], mask[0], 1e-3, 1)
+            pst, fst = clone(s0), clone(s0)
+            pl = single_plain(*pst, *s_args, spec, c, mm_dtype=bf)[-1]
+            single_plain(*fst, *s_args, spec, c)
+            row["chain_max_abs_err_params"], row["chain_max_mv_err_over_largest"] = err, mv
+            name += ": first chained step"
+        else:
+            fst = clone(s0)
+            plain(*fst, x, y, mask, *sched, spec, c)
+        torch.cuda.synchronize()
+        err, mv, mv_f32 = check_bf16(name, kst, kl, pst, pl, fst)
+        row.update({"max_abs_err_params": err, "max_mv_err_over_largest": mv,
+                    "mv_err_vs_f32_plain_over_largest": mv_f32})
+        cases.append(row)
+
+    out = {"phase": "mm_dtype", "cases": cases}
+    if fits:
+        from lbdrn_msic_tpu_torch.profiling import mm_ab
+
+        fs.fused_train_step.launches = 0
+        rows = mm_ab.ab(rounds=2)
+        n_fits = 3 * len(mm_ab.MM_DTYPES)
+        assert fs.fused_train_step.launches == n_fits * 5120, fs.fused_train_step.launches
+        out["mm_ab"] = {str(k): v for k, v in rows.items()}
+        out["mm_ab_k1_launches_per_fit"] = fs.fused_train_step.launches // n_fits
+    emit({**out, "card": card})
+
+
+def adam_bound(t: int) -> float:
+    """The largest |m| / sqrt(v) of Adam at step t from zero state without
+    bias correction (c1 = c2 = 1, as K5 runs): Cauchy-Schwarz over the
+    gradients' weights in m and v."""
+    return sum((0.1 * 0.9 ** (t - i)) ** 2 / (0.001 * 0.999 ** (t - i))
+               for i in range(1, t + 1)) ** 0.5
+
+
+def phase_kernel_prof(card: str):
+    """K5: every variant's kernel against its plain version, then the
+    profiling path variant by variant, counts zeroed before each."""
+    import numpy as np
+    import torch
+
+    from lbdrn_msic_tpu_torch.models.siren import SirenParams
+    from lbdrn_msic_tpu_torch.ops import fused_step as fs
+    from lbdrn_msic_tpu_torch.profiling import kernel_prof as kp
+
+    inputs = kp.make_inputs(seed=0)
+    ws, bs, x, y, mask = inputs
+    lr = kp.LR
+
+    def state():
+        p = SirenParams([w.clone() for w in ws], [b.clone() for b in bs])
+        return p, p.map(torch.zeros_like), p.map(torch.zeros_like)
+
+    # kernel against plain from the same state, per product: (loss rtol, m/v
+    # within this fraction of the largest; params tight where |g| is above
+    # it and above 1e-4 of the largest); the 5-step chain's losses at the
+    # third rtol (c1 = c2 = 1 makes every update ~3 lr * sign(m), so the
+    # chain amplifies step 1's differences).  The tensor cores' f32
+    # accumulation is not IEEE round-to-nearest: 3xTF32's step-1 m, v differ
+    # from its plain emulation ~100x more than FFMA's do, hence its chain
+    # tier is TF32's.  bf16 (K1's rounded operands, FFMA products) holds m, v
+    # within 1e-5 (measured 6e-7 on an H100), and they must lie at least 10x
+    # farther from the f32 plain step (prod_f32's) than from its own, so that
+    # a kernel which skips the bf16 rounding fails.  Every check is measured
+    # and recorded first; the phase fails after its line.
+    tiers = {"f32": (1e-5, 1e-4, 1e-3), "3xtf32": (1e-5, 1e-3, 1e-2),
+             "tf32": (1e-4, 1e-2, 1e-2), "bf16": (1e-4, 1e-5, 1e-2)}
+    checks, failed, kernel_states = [], [], {}
+    chain_bound = 2 * lr * sum(adam_bound(t) for t in range(1, 6))
+    for name, (mode, _, _) in kp.VARIANTS.items():
+        product = kp.PRODUCT.get(mode, "f32")
+        loss_rtol, mv_frac, chain_rtol = tiers[product]
+        kst, pst = state(), state()
+        kl = float(kp.variant_step(*kst, x, y, mask, name))
+        pl = float(kp.variant_step_plain(*pst, x, y, mask, name))
+        kernel_states[name] = (tuple(p.map(torch.clone) for p in kst), kl)
+        mv = mv_dist(kst, pst)
+        gscale = max(float(t.abs().max()) for t in pst[1].leaves())
+        err, tight = 0.0, -1.0
+        for a, r, m in zip(kst[0].leaves(), pst[0].leaves(), pst[1].leaves()):
+            well = m.abs() >= max(mv_frac, 1e-4) * gscale  # |g| well above the noise
+            if bool(well.any()):  # > 0 where |a - r| exceeds rtol 2e-4, atol 1e-6
+                tight = max(tight, float(((a - r).abs() - 2e-4 * r.abs() - 1e-6)[well].max()))
+            err = max(err, float((a - r).abs().max()))
+        ok = {"loss": abs(kl - pl) <= loss_rtol * abs(pl), "m_v": mv <= mv_frac,
+              "params_tight_where_well_conditioned": tight <= 0,
+              "params_within_adam_bound": err <= 2 * adam_bound(1) * lr}
+        mv_f32 = None
+        if product == "bf16":
+            fst = state()
+            kp.variant_step_plain(*fst, x, y, mask, "prod_f32")
+            mv_f32 = mv_dist(kst, fst)
+            ok["m_v_farther_from_f32"] = mv_f32 >= 10 * mv
+        if mode == "fwd_notrans":  # forward only: the state is untouched
+            ok["state_unchanged"] = (
+                all(torch.equal(a, b) for a, b in zip(kst[0].leaves(), ws + bs))
+                and all(float(t.abs().max()) == 0 for t in kst[1].leaves() + kst[2].leaves()))
+        # a 5-step chain, kernel against plain, each from its own last state
+        chain = [[kl, pl]]
+        for _ in range(4):
+            chain.append([float(kp.variant_step(*kst, x, y, mask, name)),
+                          float(kp.variant_step_plain(*pst, x, y, mask, name))])
+        chain_err = max(abs(kc - pc) / abs(pc) for kc, pc in chain)
+        drift = max(float((a - r).abs().max()) for a, r in zip(kst[0].leaves(), pst[0].leaves()))
+        ok["chain_losses"] = chain_err <= chain_rtol
+        ok["chain_params_within_adam_bound"] = drift <= chain_bound
+        if mode == "fwd_notrans":
+            ok["chain_losses_unchanged"] = all(kc == kl for kc, _ in chain)
+        failed += [f"{name}: {what}" for what, good in ok.items() if not good]
+        checks.append({"variant": name, "product": product, "loss": kl, "loss_plain": pl,
+                       "tiers": {"loss_rtol": loss_rtol, "m_v": mv_frac, "chain_rtol": chain_rtol},
+                       "max_mv_err_over_largest": mv, "mv_err_vs_f32_plain_over_largest": mv_f32,
+                       "max_abs_err_params": err,
+                       "chain_losses": chain, "chain_max_rel_err": chain_err,
+                       "chain_param_drift": drift, "chain_param_bound": chain_bound, "ok": ok})
+    # same function, other layout or rows: full_t is full_dg bit for bit (the
+    # same sums over the same values); tile2048 is full_dg to summation order
+    (ta, la), (da, ld), (ga, lg) = (kernel_states[n] for n in ("full_t", "full_dg", "tile2048"))
+    if not (la == ld and all(torch.equal(a, b) for sa, sb in zip(ta, da)
+                             for a, b in zip(sa.leaves(), sb.leaves()))):
+        failed.append("full_t != full_dg bit for bit")
+    tile_mv = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for sa, sb in zip(ga[1:], da[1:]) for a, b in zip(sa.leaves(), sb.leaves())
+                  if float(b.abs().max()))
+    if abs(lg - ld) > 1e-5 * abs(ld) or tile_mv > 1e-4:
+        failed.append(f"tile2048 vs full_dg: loss {lg} vs {ld}, m/v {tile_mv}")
+
+    # the profiling path, variant by variant: counts zeroed, three 512-step
+    # runs, counts read
+    counted = (fs.fused_train_step, fs.fused_expert_step, fs.fused_multi_step,
+               fs.fused_expert_multi_step)
+    dims = [kp.F, kp.BC, kp.BC, kp.C]
+    P = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(3))
+    ops, nbytes = step_cost(kp.B, dims, P)
+    mm_ops = 2 * kp.B * (2 * sum(dims[l] * dims[l + 1] for l in range(3))
+                         + sum(dims[l] * dims[l + 1] for l in range(1, 3)))
+    rounds, kernels, timing = 3, [], []
+    for name, (mode, _, _) in kp.VARIANTS.items():
+        product = kp.PRODUCT.get(mode, "f32")
+        kp.variant_step.launches = dict.fromkeys(kp.KERNEL_VARIANTS, 0)
+        for kern in counted:
+            kern.launches = 0
+        runs = kp.profile([name], rounds, inputs)[name]
+        ms_run = float(np.median(runs))  # as K1-K4's (the printed line is the best)
+        k5 = dict(kp.variant_step.launches)
+        k1 = fs.fused_train_step.launches
+        assert all(kern.launches == 0 for kern in counted[1:])
+        if mode.startswith("prod"):  # K1 itself
+            launches = k1
+            assert sum(k5.values()) == 0, k5
+        else:
+            launches = k5[name]
+            assert k1 == 0 and sum(k5.values()) == launches, (k1, k5)
+        assert launches == rounds * kp.STEPS, (name, launches)
+        st = state()
+        plain_ms = cuda_ms(lambda: kp.variant_step_plain(*st, x, y, mask, name), 10, warm=2)
+        if mode == "fwd_notrans":
+            v_ops = {"f32": 2 * kp.B * sum(dims[l] * dims[l + 1] for l in range(3))}
+            v_bytes = 4 * (kp.B * (kp.F + kp.C + 1) + P + 1)
+        elif product == "f32":
+            v_ops, v_bytes = ops, nbytes
+        else:  # the products at their type's tensor-core peak (three for 3xTF32)
+            unit = "bf16" if product == "bf16" else "tf32"
+            v_ops = {unit: mm_ops * (3 if product == "3xtf32" else 1), "f32": ops - mm_ops}
+            v_bytes = nbytes
+        err = next(c["max_abs_err_params"] for c in checks if c["variant"] == name)
+        source = ("lbdrn_msic_tpu_torch/csrc/fused_step.cu" if mode.startswith("prod")
+                  else "lbdrn_msic_tpu_torch/csrc/kernel_prof.cu")
+        entry = kernel_entry(f"kernel_prof:{name}", "scripts/profiling/kernel_prof.py:218", card,
+                             v_ops, v_bytes, ms_run / kp.STEPS, plain_ms, err, source)
+        entry["launches"] = launches
+        entry["steps_per_run"] = kp.STEPS
+        kernels.append(entry)
+        timing.append({"variant": name, "product": product, "rows_per_cta": kp.cta_rows(name),
+                       "ms_512_steps": ms_run, "ms_512_steps_runs": runs,
+                       "ms_per_step": ms_run / kp.STEPS,
+                       "bound_ms_per_step": entry["bound_ms"], "bound_by": entry["bound_by"],
+                       "plain_ms_per_step": plain_ms, "launches": launches,
+                       "kernel": "K1" if mode.startswith("prod") else "K5"})
+    emit({"phase": "kernel_prof", "B": kp.B, "widths": dims, "checks": checks,
+          "full_t_bit_identical_to_full_dg": "full_t != full_dg bit for bit" not in failed,
+          "tile2048_vs_full_dg_max_mv_err_over_largest": tile_mv, "timing": timing,
+          "failed": failed, "card": card})
+    assert not failed, failed
+    return kernels
+
+
 def phase_profile(what: str, run, secs):
     """One more run of `run` under torch.profiler: device time by kernel
     name and the device's busy share of the run's wall time."""
@@ -750,24 +1079,28 @@ def main():
     def native():
         assert _native.load() is not None, "native codec library did not build"
 
-    # nvcc (the kernels) and g++ (the host codecs) side by side
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        k_fut = pool.submit(timed, lambda: _build.load("fused_step"))
+    # nvcc (one per kernel source) and g++ (the host codecs) side by side
+    sources = ("fused_step", "kernel_prof")
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        k_futs = {src: pool.submit(timed, lambda s=src: _build.load(s)) for src in sources}
         n_fut = pool.submit(timed, native)
-        k_s, n_s = k_fut.result(), n_fut.result()
-    ptxas = _build.build_log.get("fused_step", {}).get("ptxas", "")
+        k_s = {src: f.result() for src, f in k_futs.items()}
+        n_s = n_fut.result()
     emit({"phase": "build", "kernel_s": k_s, "native_s": n_s,
-          "ptxas": [ln for ln in ptxas.splitlines()
-                    if any(w in ln for w in ("entry function", "registers", "spill"))]})
+          "ptxas": {src: [ln for ln in _build.build_log.get(src, {}).get("ptxas", "").splitlines()
+                          if any(w in ln for w in ("entry function", "registers", "spill"))]
+                    for src in sources}})
 
     k1 = phase_kernels(card)
     k2 = phase_expert_kernels(card)
     k3, k4 = phase_multi_kernels(card)
+    phase_mm_dtype(card, fits=args.only != "kernels")
+    k5 = phase_kernel_prof(card)
     if args.only != "kernels":
         phase_codec(args.profile, k1)
         phase_sweep(args.profile, k2)
         phase_multi_k(card, args.profile, k3, k4)
-    emit({"kernels": [k1, k2, k3, k4]})
+    emit({"kernels": [k1, k2, k3, k4, *k5]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

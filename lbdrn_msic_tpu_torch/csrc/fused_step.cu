@@ -80,30 +80,15 @@
 // Arithmetic outside the matrix products uses explicitly rounded
 // operations (__fmul_rn / __fadd_rn: no FMA contraction), in the operation
 // order of the plain PyTorch version, so only summation order differs.
+//
+// mm_dtype "bfloat16" (StepArgs.mm_bf16, every kernel above): a second
+// instantiation of the first pass rounds each product operand to bf16 as
+// mm4x4 reads it, where the JAX kernels cast both operands of each dot, and
+// multiplies on FFMA.  The product of two bf16 values is exact in f32, so
+// only the summation order differs from JAX's bf16 dot with f32
+// accumulation.  Tensor-core bf16 products belong to the redesign.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define MAX_LAYERS 16
-#define THREADS 256
-
-// What stays fixed over a fit (parameter and Adam-state pointers, widths),
-// so the host builds it once; x, y and mask are launch arguments.  With
-// experts, each pointer is that of expert 0 of its stack.
-struct StepArgs {
-  float* w[MAX_LAYERS];
-  float* b[MAX_LAYERS];
-  float* mw[MAX_LAYERS];
-  float* vw[MAX_LAYERS];
-  float* mb[MAX_LAYERS];
-  float* vb[MAX_LAYERS];
-  int32_t dims[MAX_LAYERS + 1];
-  float w0[MAX_LAYERS];
-  int32_t L;
-  int32_t B;
-  int32_t rows;     // batch rows per CTA
-  int32_t stage_w;  // 1: weights and biases staged in shared memory
-};
+#include "step_common.cuh"
 
 namespace {
 
@@ -135,82 +120,16 @@ __device__ __forceinline__ void sincos_poly(float u, float* s, float* c) {
   *c = __fmul_rn(sg, pc);
 }
 
-// out(i, j) = sum_k a(i, k) * b(k, j) for an M x N product, 4x4 outputs per
-// thread, k ascending; ep(i, j, acc) consumes each result.
-template <class AF, class BF, class EP>
-__device__ __forceinline__ void mm4x4(int M, int N, int K, AF a, BF b, EP ep) {
-  const int tm = (M + 3) >> 2, tn = (N + 3) >> 2;
-  for (int t = threadIdx.x; t < tm * tn; t += blockDim.x) {
-    const int i0 = (t / tn) << 2, j0 = (t % tn) << 2;
-    float acc[4][4];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) av[ii] = (i0 + ii < M) ? a(i0 + ii, k) : 0.0f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) bv[jj] = (j0 + jj < N) ? b(k, j0 + jj) : 0.0f;
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(av[ii], bv[jj], acc[ii][jj]);
-    }
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        if (i0 + ii < M && j0 + jj < N) ep(i0 + ii, j0 + jj, acc[ii][jj]);
-  }
-}
-
-// Deterministic block sum of v[0..n): fixed per-thread strides, then a
-// fixed tree.  Every thread gets the result.
-__device__ float block_sum(const float* v, int n, float* red) {
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s = __fadd_rn(s, v[i]);
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int h = blockDim.x >> 1; h > 0; h >>= 1) {
-    if (threadIdx.x < h) red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + h]);
-    __syncthreads();
-  }
-  float out = red[0];
-  __syncthreads();
-  return out;
-}
-
-__device__ __forceinline__ int n_params(const StepArgs& a) {
-  int p = 0;
-  for (int l = 0; l < a.L; ++l) p += a.dims[l] * a.dims[l + 1] + a.dims[l + 1];
-  return p;
-}
-
-// per-expert element offsets of layer l's weight and bias stacks
-__device__ __forceinline__ size_t w_off(const StepArgs& a, int l, int e) {
-  return (size_t)e * a.dims[l] * a.dims[l + 1];
-}
-__device__ __forceinline__ size_t b_off(const StepArgs& a, int l, int e) {
-  return (size_t)e * a.dims[l + 1];
-}
-
-// A global load; kCG: cached in L2 only, for data that this launch may have
-// rewritten from another SM since this SM last read it.
-template <bool kCG>
-__device__ __forceinline__ float ld(const float* p) {
-  if constexpr (kCG) return __ldcg(p);
-  else return *p;
-}
-
 // The first pass for one work item: expert e's row tile t (batch rows
 // t*rows .. t*rows+rows-1).  Stages the tile, runs forward, masked SSE and
 // backward, and writes the item's partial dW/db, SSE and mask count to
 // scratch row e * n_tiles + t.  x, y, mask: expert e's batch.  kStageW:
 // weights and biases staged in shared memory (a separate instantiation, so
-// that its products read through shared-memory loads).
-template <bool kStageW, bool kCG>
+// that its products read through shared-memory loads).  kBf16: every
+// product operand rounded to bf16 as it is read (mm_dtype "bfloat16", where
+// the JAX kernel casts both operands of each dot); the false instantiation
+// is the f32 code unchanged.
+template <bool kStageW, bool kCG, bool kBf16>
 __device__ __forceinline__ void partials_item(const StepArgs& a, int e, int t, int n_tiles,
                                               const float* x, const float* y,
                                               const float* mask, float* scratch,
@@ -232,29 +151,8 @@ __device__ __forceinline__ void partials_item(const StepArgs& a, int e, int t, i
   float* gb = cur;   cur += R * gmax;
   float* wsm = cur;  // [weights then biases of every layer,] then activations
 
-  // stage the batch tile (rows past B are zero and masked out)
-  for (int i = threadIdx.x; i < R * F; i += blockDim.x) {
-    const int r = i / F;
-    xs[i] = (row0 + r < a.B) ? x[(size_t)(row0 + r) * F + (i - r * F)] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < R * C; i += blockDim.x) {
-    const int r = i / C;
-    ys[i] = (row0 + r < a.B) ? y[(size_t)(row0 + r) * C + (i - r * C)] : 0.0f;
-  }
-  for (int r = threadIdx.x; r < R; r += blockDim.x)
-    ms[r] = (row0 + r < a.B) ? mask[row0 + r] : 0.0f;
-  if (kStageW) {
-    float* p = wsm;
-    for (int l = 0; l < L; ++l) {
-      const int n = a.dims[l] * a.dims[l + 1];
-      const float* wg = a.w[l] + w_off(a, l, e);
-      const float* bg = a.b[l] + b_off(a, l, e);
-      for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = ld<kCG>(wg + i);
-      p += n;
-      for (int i = threadIdx.x; i < a.dims[l + 1]; i += blockDim.x) p[i] = ld<kCG>(bg + i);
-      p += a.dims[l + 1];
-    }
-  }
+  stage_tile(a, row0, R, F, C, x, y, mask, xs, ys, ms);
+  if (kStageW) stage_weights<kCG>(a, e, wsm);
   __syncthreads();
 
   // layout helpers: layer l's weight and bias (shared memory when staged,
@@ -298,7 +196,7 @@ __device__ __forceinline__ void partials_item(const StepArgs& a, int e, int t, i
     float* hout = hl(l + 1);
     float* co = cosl(l);
     const float w0 = a.w0[l];
-    mm4x4(R, dout, din,
+    mm4x4<kBf16>(R, dout, din,
           [&](int i, int k) { return hin[i * din + k]; },
           [&](int k, int j) { return rw(W + k * dout + j); },
           [&](int i, int j, float acc) {
@@ -317,7 +215,7 @@ __device__ __forceinline__ void partials_item(const StepArgs& a, int e, int t, i
     const float* hin = hl(L - 1);
     const float* W = wl(L - 1);
     const float* bias = bl(L - 1);
-    mm4x4(R, C, din,
+    mm4x4<kBf16>(R, C, din,
           [&](int i, int k) { return hin[i * din + k]; },
           [&](int k, int j) { return rw(W + k * C + j); },
           [&](int i, int j, float acc) {
@@ -349,7 +247,7 @@ __device__ __forceinline__ void partials_item(const StepArgs& a, int e, int t, i
     float* dW = part + off;
     float* db = dW + din * dout;
     const float* gc = g;
-    mm4x4(din, dout, R,
+    mm4x4<kBf16>(din, dout, R,
           [&](int i, int k) { return hin[k * din + i]; },
           [&](int k, int j) { return gc[k * dout + j]; },
           [&](int i, int j, float acc) { dW[i * dout + j] = acc; });
@@ -361,7 +259,7 @@ __device__ __forceinline__ void partials_item(const StepArgs& a, int e, int t, i
     if (l > 0) {
       const float* co = cosl(l - 1);
       float* gw = gn;
-      mm4x4(R, din, dout,
+      mm4x4<kBf16>(R, din, dout,
             [&](int i, int k) { return gc[i * dout + k]; },
             [&](int k, int j) { return rw(W + j * dout + k); },
             [&](int i, int j, float acc) { gw[i * din + j] = __fmul_rn(acc, co[i * din + j]); });
@@ -383,58 +281,24 @@ __device__ __forceinline__ void adam_param(const StepArgs& a, int e, int p,
   const int P = n_params(a);
   const int S = P + 2;
   const int C = a.dims[a.L];
-  float cnt = 0.0f;
-  for (int c = 0; c < n_tiles; ++c)
-    cnt = __fadd_rn(cnt, ld<kCG>(scratch + (size_t)c * S + P + 1));
+  const float cnt = col_sum<kCG>(scratch, n_tiles, S, P + 1);
   const float inv_scale = __fdiv_rn(1.0f, __fmul_rn(fmaxf(cnt, 1.0f), (float)C));
-  if (p == 0) {
-    float sse = 0.0f;
-    for (int c = 0; c < n_tiles; ++c) sse = __fadd_rn(sse, ld<kCG>(scratch + (size_t)c * S + P));
-    *loss = __fmul_rn(sse, inv_scale);
-  }
-  float g = 0.0f;
-  for (int c = 0; c < n_tiles; ++c) g = __fadd_rn(g, ld<kCG>(scratch + (size_t)c * S + p));
-  g = __fmul_rn(g, inv_scale);
-
-  // locate the parameter: layer by layer, weight then bias
-  float *th = nullptr, *m = nullptr, *v = nullptr;
-  int q = p;
-  for (int l = 0; l < a.L; ++l) {
-    const int nw = a.dims[l] * a.dims[l + 1], nb = a.dims[l + 1];
-    if (q < nw) {
-      const size_t o = w_off(a, l, e) + q;
-      th = a.w[l] + o; m = a.mw[l] + o; v = a.vw[l] + o;
-      break;
-    }
-    q -= nw;
-    if (q < nb) {
-      const size_t o = b_off(a, l, e) + q;
-      th = a.b[l] + o; m = a.mb[l] + o; v = a.vb[l] + o;
-      break;
-    }
-    q -= nb;
-  }
-  const float m_new = __fadd_rn(__fmul_rn(0.9f, ld<kCG>(m)), __fmul_rn(0.1f, g));
-  const float v_new =
-      __fadd_rn(__fmul_rn(0.999f, ld<kCG>(v)), __fmul_rn(__fmul_rn(0.001f, g), g));
-  const float step = __fdiv_rn(__fmul_rn(lr, __fmul_rn(m_new, c1)),
-                               __fadd_rn(sqrtf(__fmul_rn(v_new, c2)), 1e-8f));
-  *th = __fsub_rn(ld<kCG>(th), step);
-  *m = m_new;
-  *v = v_new;
+  if (p == 0) *loss = __fmul_rn(col_sum<kCG>(scratch, n_tiles, S, P), inv_scale);
+  adam_update<kCG>(a, e, p, __fmul_rn(col_sum<kCG>(scratch, n_tiles, S, p), inv_scale), lr, c1,
+                   c2);
 }
 
 // K1/K2 pass 1: CTA (blockIdx.x, blockIdx.y) is item (expert y, tile x).
-template <bool kStageW>
+template <bool kStageW, bool kBf16>
 __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float* x,
                                                           const float* y, const float* mask,
                                                           int mask_stride, float* scratch) {
   extern __shared__ float smem[];
   const int e = blockIdx.y;
   const int F = a.dims[0], C = a.dims[a.L];
-  partials_item<kStageW, false>(a, e, blockIdx.x, gridDim.x, x + (size_t)e * a.B * F,
-                                y + (size_t)e * a.B * C, mask + (size_t)e * mask_stride,
-                                scratch, smem);
+  partials_item<kStageW, false, kBf16>(a, e, blockIdx.x, gridDim.x,
+                                       x + (size_t)e * a.B * F, y + (size_t)e * a.B * C,
+                                       mask + (size_t)e * mask_stride, scratch, smem);
 }
 
 // K1/K2 pass 2: one thread per (parameter, expert y).
@@ -472,7 +336,7 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar, unsigned int n_bloc
 // Strides in elements: *_es between two experts' batches, *_ss between two
 // steps' (mask_es = 0: one mask per step shared by the experts).  sched:
 // (k, 3) lr, c1, c2; loss: (k, E).
-template <bool kStageW>
+template <bool kStageW, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
     multi_step(StepArgs a, int E, int k, const float* x, long long x_es, long long x_ss,
                const float* y, long long y_es, long long y_ss, const float* mask,
@@ -485,9 +349,9 @@ __global__ void __launch_bounds__(THREADS)
   for (int s = 0; s < k; ++s) {
     for (int it = blockIdx.x; it < items; it += gridDim.x) {
       const int e = it / n_tiles;
-      partials_item<kStageW, true>(a, e, it - e * n_tiles, n_tiles, x + s * x_ss + e * x_es,
-                                   y + s * y_ss + e * y_es, mask + s * mask_ss + e * mask_es,
-                                   scratch, smem);
+      partials_item<kStageW, true, kBf16>(a, e, it - e * n_tiles, n_tiles,
+                                          x + s * x_ss + e * x_es, y + s * y_ss + e * y_es,
+                                          mask + s * mask_ss + e * mask_es, scratch, smem);
     }
     grid_sync(bar, gridDim.x);
     const float lr = sched[3 * s], c1 = sched[3 * s + 1], c2 = sched[3 * s + 2];
@@ -521,25 +385,24 @@ int lbdrn_fused_step(const StepArgs* args, int E, const float* x, const float* y
                      const float* mask, int mask_stride, float* scratch, int n_cta,
                      int smem_bytes, float* loss, float lr, float c1, float c2,
                      void* stream) {
-  static int smem_set[2] = {0, 0};  // opted-in size per instantiation
+  using Partials = void (*)(StepArgs, const float*, const float*, const float*, int, float*);
+  // instantiation 2 * stage_w + mm_bf16, and its opted-in shared memory
+  static const Partials fns[4] = {step_partials<false, false>, step_partials<false, true>,
+                                  step_partials<true, false>, step_partials<true, true>};
+  static int smem_set[4] = {0, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int staged = args->stage_w ? 1 : 0;
-  const void* fn = staged ? (const void*)step_partials<true> : (const void*)step_partials<false>;
-  if (smem_bytes > smem_set[staged]) {
-    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes);
+  const int inst = (args->stage_w ? 2 : 0) + (args->mm_bf16 ? 1 : 0);
+  const Partials fn = fns[inst];
+  if (smem_bytes > smem_set[inst]) {
+    cudaError_t e = cudaFuncSetAttribute((const void*)fn,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    smem_set[staged] = smem_bytes;
+    smem_set[inst] = smem_bytes;
   }
   int P = 0;
   for (int l = 0; l < args->L; ++l) P += args->dims[l] * args->dims[l + 1] + args->dims[l + 1];
   const dim3 grid1(n_cta, E), grid2((P + 255) / 256, E);
-  if (staged)
-    step_partials<true><<<grid1, THREADS, smem_bytes, s>>>(*args, x, y, mask, mask_stride,
-                                                          scratch);
-  else
-    step_partials<false><<<grid1, THREADS, smem_bytes, s>>>(*args, x, y, mask, mask_stride,
-                                                           scratch);
+  fn<<<grid1, THREADS, smem_bytes, s>>>(*args, x, y, mask, mask_stride, scratch);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   step_adam<<<grid2, 256, 0, s>>>(*args, scratch, n_cta, loss, lr, c1, c2);
@@ -558,15 +421,20 @@ int lbdrn_fused_multi_step(const StepArgs* args, int E, int k, const float* x,
                            long long mask_ss, float* scratch, int n_tiles, int smem_bytes,
                            const float* sched, float* loss, unsigned int* bar, void* stream,
                            int* grid) {
-  static int smem_set[2] = {0, 0};  // opted-in size per instantiation
+  // instantiation 2 * stage_w + mm_bf16, and its opted-in shared memory
+  static const void* fns[4] = {(const void*)multi_step<false, false>,
+                               (const void*)multi_step<false, true>,
+                               (const void*)multi_step<true, false>,
+                               (const void*)multi_step<true, true>};
+  static int smem_set[4] = {0, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int staged = args->stage_w ? 1 : 0;
-  const void* fn = staged ? (const void*)multi_step<true> : (const void*)multi_step<false>;
+  const int inst = (args->stage_w ? 2 : 0) + (args->mm_bf16 ? 1 : 0);
+  const void* fn = fns[inst];
   cudaError_t e;
-  if (smem_bytes > smem_set[staged]) {
+  if (smem_bytes > smem_set[inst]) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    smem_set[staged] = smem_bytes;
+    smem_set[inst] = smem_bytes;
   }
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;

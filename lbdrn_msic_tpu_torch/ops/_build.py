@@ -2,9 +2,9 @@
 
 Each `.cu` source compiles on first use into one shared library with a
 plain C interface under the package's build directory (`_build/`,
-git-ignored), for `sm_90a`.  Nothing here runs at import time: a machine
-without `nvcc` imports the package and uses the kernels' plain versions on
-CPU tensors.
+git-ignored), for `sm_90a`; the `.cuh` headers beside them are shared.
+Nothing here runs at import time: a machine without `nvcc` imports the
+package and uses the kernels' plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -38,11 +38,13 @@ def nvcc() -> str:
 
 
 def build(name: str) -> str:
-    """Compile csrc/<name>.cu to _build/lib<name>.so when missing or stale;
-    returns the library path.  Raises with the compiler output on failure."""
+    """Compile csrc/<name>.cu to _build/lib<name>.so when missing or older
+    than the source or a header of csrc/; returns the library path.  Raises
+    with the compiler output on failure."""
     src = os.path.join(CSRC, name + ".cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    inputs = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    if os.path.exists(so) and os.path.getmtime(so) >= max(map(os.path.getmtime, inputs)):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -16,6 +16,11 @@ One step performs, for one batch:
 plain version only for CPU tensors; `reference_train_step` is the exact
 `torch.sin` + autograd step (or, with `match_kernel=True`, the kernel's own
 numerics) that `use_fused=False` trains with.
+
+`mm_dtype` (every step function; default None, full f32): "bfloat16"
+rounds both operands of every product to bf16 and accumulates in f32, the
+JAX package's `mm_dtype` (lbdrn_msic_tpu/ops/fused_step.py::_fwd_bwd).  It
+is opt-in: nothing in the codec sets it.
 """
 
 from __future__ import annotations
@@ -76,23 +81,41 @@ def layer_w0s(mspec: ModelSpec) -> List[float]:
     return [mspec.w0_initial] + [mspec.w0] * (mspec.num_layers - 1) + [0.0]
 
 
-def fwd_bwd(x, y, mask, ws, bs, w0s):
+def mm_bf16(mm_dtype) -> bool:
+    """True for mm_dtype "bfloat16", False for None; raises otherwise."""
+    if mm_dtype not in (None, "bfloat16"):
+        raise ValueError(f"mm_dtype must be None or 'bfloat16', got {mm_dtype!r}")
+    return mm_dtype is not None
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def fwd_bwd(x, y, mask, ws, bs, w0s, mm_dtype=None):
     """Forward + hand-derived backward for a batch.
 
     mask: (B, 1).  Returns (sse, dws, dbs): the masked squared-error sum and
     the *unscaled* gradients d(sum se)/dW, d(sum se)/db (biases (1, out)).
+    `mm_dtype` "bfloat16": both operands of every product rounded to bf16;
+    their products are exact in f32, so the f32 matmul is the bf16 product
+    with f32 accumulation.
     """
+    if mm_bf16(mm_dtype):
+        matmul = lambda a, b: torch.matmul(_bf16(a), _bf16(b))
+    else:
+        matmul = torch.matmul
     L = len(ws)
     hs = [x]
     coss = []
     h = x
     for l in range(L - 1):
-        z = torch.matmul(h, ws[l]) + bs[l]
+        z = matmul(h, ws[l]) + bs[l]
         s, c = sincos(w0s[l] * z)
         coss.append(w0s[l] * c)
         h = s
         hs.append(h)
-    z_last = torch.matmul(h, ws[L - 1]) + bs[L - 1]
+    z_last = matmul(h, ws[L - 1]) + bs[L - 1]
     p = 1.0 / (1.0 + torch.exp(-z_last))
     diff = (p - y) * mask
     sse = torch.sum(diff * diff)
@@ -100,10 +123,10 @@ def fwd_bwd(x, y, mask, ws, bs, w0s):
     dws: list = [None] * L
     dbs: list = [None] * L
     for l in range(L - 1, -1, -1):
-        dws[l] = torch.matmul(hs[l].T, g)
+        dws[l] = matmul(hs[l].T, g)
         dbs[l] = torch.sum(g, dim=0, keepdim=True)
         if l > 0:
-            g = torch.matmul(g, ws[l].T) * coss[l - 1]
+            g = matmul(g, ws[l].T) * coss[l - 1]
     return sse, dws, dbs
 
 
@@ -125,9 +148,10 @@ def bias_corrections(step: int) -> Tuple[float, float]:
     return float(c1), float(c2)
 
 
-def _apply_adam(params, m_state, v_state, grads_w, grads_b, lr, step):
-    """Adam over every leaf, writing params, m and v in place."""
-    c1, c2 = bias_corrections(step)
+def _apply_adam(params, m_state, v_state, grads_w, grads_b, lr, step, corrections=None):
+    """Adam over every leaf, writing params, m and v in place; `corrections`
+    (c1, c2) replaces the bias corrections of `step` when given."""
+    c1, c2 = corrections or bias_corrections(step)
     lr = float(np.float32(lr))
     for th, g, m, v in zip(
         params.weights + params.biases, list(grads_w) + list(grads_b),
@@ -140,19 +164,20 @@ def _apply_adam(params, m_state, v_state, grads_w, grads_b, lr, step):
 
 
 def fused_train_step_plain(params, m_state, v_state, x, y, mask, lr, step,
-                           mspec: ModelSpec, dim_out: int, loss_out=None):
+                           mspec: ModelSpec, dim_out: int, loss_out=None, mm_dtype=None,
+                           corrections=None):
     """The kernel's function in plain torch ops: same sincos, same
     hand-derived backward, same Adam form.  Updates params/m/v in place and
     returns (params, m, v, loss)."""
     sse, dws, dbs = fwd_bwd(
         x, y, mask.reshape(-1, 1), params.weights,
-        [b.reshape(1, -1) for b in params.biases], layer_w0s(mspec),
+        [b.reshape(1, -1) for b in params.biases], layer_w0s(mspec), mm_dtype,
     )
     inv_scale = 1.0 / (torch.clamp(mask.sum(), min=1.0) * dim_out)
     _apply_adam(
         params, m_state, v_state,
         [d * inv_scale for d in dws], [d.reshape(-1) * inv_scale for d in dbs],
-        lr, step,
+        lr, step, corrections,
     )
     loss = sse * inv_scale
     if loss_out is not None:
@@ -169,7 +194,7 @@ class _StepArgs(ctypes.Structure):
         + [("dims", ctypes.c_int32 * (MAX_LAYERS + 1)),
            ("w0", ctypes.c_float * MAX_LAYERS),
            ("L", ctypes.c_int32), ("B", ctypes.c_int32), ("rows", ctypes.c_int32),
-           ("stage_w", ctypes.c_int32)]
+           ("stage_w", ctypes.c_int32), ("mm_bf16", ctypes.c_int32)]
     )
 
 
@@ -199,8 +224,8 @@ def cta_layout(dims: List[int], smem_limit: int) -> Tuple[int, bool]:
 
 _lib = None
 _smem_optin = 0
-# StepArgs per (param/m/v pointers, B, widths, spec): fixed over a fit, so
-# each training step reuses one struct
+# StepArgs per (param/m/v pointers, B, widths, spec, mm_dtype): fixed over a
+# fit, so each training step reuses one struct
 _args_cache: dict = {}
 
 
@@ -241,10 +266,12 @@ def _check(t: torch.Tensor, shape, what: str, device: torch.device):
 
 def _step_args(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
                B: int, F: int, mspec: ModelSpec, dim_out: int, lead: tuple,
-               dev: torch.device):
+               dev: torch.device, mm_dtype=None):
     """Check the param and Adam-state leaves (each with the leading axes
     `lead`: () for one network, (E,) for experts) and return the cached
-    (StepArgs, shared-memory bytes, row tiles, P) for them and batch B."""
+    (StepArgs, shared-memory bytes, row tiles, P) for them, batch B and
+    `mm_dtype`."""
+    bf16 = mm_bf16(mm_dtype)
     L = len(params.weights)
     if L > MAX_LAYERS or L != mspec.num_layers + 1:
         raise ValueError(f"unsupported layer count {L}")
@@ -257,7 +284,7 @@ def _step_args(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
             _check(st.biases[l], (*lead, dims[l + 1]), f"{nm} bias {l}", dev)
 
     leaves = params.leaves() + m_state.leaves() + v_state.leaves()
-    key = (tuple(t.data_ptr() for t in leaves), B, tuple(dims), mspec)
+    key = (tuple(t.data_ptr() for t in leaves), B, tuple(dims), mspec, bf16)
     hit = _args_cache.get(key)
     if hit is None:
         rows, stage_w = cta_layout(dims, _smem_optin)
@@ -273,6 +300,7 @@ def _step_args(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
         for l, w0 in enumerate(layer_w0s(mspec)):
             args.w0[l] = w0
         args.L, args.B, args.rows, args.stage_w = L, B, rows, int(stage_w)
+        args.mm_bf16 = int(bf16)
         P = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(L))
         hit = (args, smem_bytes(dims, rows, stage_w), -(-B // rows), P)
         if len(_args_cache) > 64:
@@ -283,11 +311,13 @@ def _step_args(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
 
 def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
             x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, lr: float, step: int,
-            mspec: ModelSpec, dim_out: int, loss_out: torch.Tensor | None, E: int | None):
+            mspec: ModelSpec, dim_out: int, loss_out: torch.Tensor | None, E: int | None,
+            mm_dtype=None, corrections=None):
     """Check shapes and launch csrc/fused_step.cu once: one network
     (`E=None`: unstacked leaves, x (B, F), mask (B,), 0-d loss) or E experts
     (leaves with a leading E axis, x (E, B, F), mask (B,) shared or (E, B),
-    (E,) loss).  Returns the loss tensor."""
+    (E,) loss).  `corrections` (c1, c2) replaces the bias corrections of
+    `step` when given.  Returns the loss tensor."""
     lib = _kernel_lib()
     lead = () if E is None else (E,)
     B, F = x.shape[-2:]
@@ -300,7 +330,8 @@ def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
     else:
         _check(mask, (B,), "mask", dev)
         mask_stride = 0
-    args, smem, n_cta, P = _step_args(params, m_state, v_state, B, F, mspec, dim_out, lead, dev)
+    args, smem, n_cta, P = _step_args(params, m_state, v_state, B, F, mspec, dim_out, lead, dev,
+                                      mm_dtype)
     if loss_out is None:
         loss_out = torch.empty(lead, dtype=torch.float32, device=dev)
     else:
@@ -308,7 +339,7 @@ def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
 
     n_exp = 1 if E is None else E
     scratch = torch.empty((n_exp, n_cta, P + 2), dtype=torch.float32, device=dev)
-    c1, c2 = bias_corrections(step)
+    c1, c2 = corrections or bias_corrections(step)
     rc = lib.lbdrn_fused_step(
         ctypes.byref(args), n_exp, x.data_ptr(), y.data_ptr(), mask.data_ptr(), mask_stride,
         scratch.data_ptr(), n_cta, smem, loss_out.data_ptr(),
@@ -322,7 +353,7 @@ def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
 def _launch_multi(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
                   X: torch.Tensor, Y: torch.Tensor, masks: torch.Tensor,
                   lrs: Sequence[float], step0: int, mspec: ModelSpec, dim_out: int,
-                  loss_out: torch.Tensor | None, E: int | None):
+                  loss_out: torch.Tensor | None, E: int | None, mm_dtype=None):
     """Check shapes and launch the multi-step kernel once, for k steps: one
     network (`E=None`: X (k, B, F), (k,) losses) or E experts (X (k, E, B,
     F) step-major, (k, E) losses); masks (k, B), shared by the experts.
@@ -338,7 +369,7 @@ def _launch_multi(params: SirenParams, m_state: SirenParams, v_state: SirenParam
     _check(Y, (k, *lead, B, dim_out), "Y", dev)
     _check(masks, (k, B), "masks", dev)
     args, smem, n_tiles, P = _step_args(params, m_state, v_state, B, F, mspec, dim_out, lead,
-                                        dev)
+                                        dev, mm_dtype)
     if loss_out is None:
         loss_out = torch.empty((k, *lead), dtype=torch.float32, device=dev)
     else:
@@ -372,7 +403,8 @@ def _launch_multi(params: SirenParams, m_state: SirenParams, v_state: SirenParam
 def fused_train_step(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
                      x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
                      lr: float, step: int, mspec: ModelSpec, dim_out: int,
-                     loss_out: torch.Tensor | None = None):
+                     loss_out: torch.Tensor | None = None, mm_dtype=None,
+                     corrections=None):
     """One fused training step, in place on params, m_state and v_state.
 
     x: (B, padded_in) f32; y: (B, dim_out) f32; mask: (B,) f32; `lr` and the
@@ -380,6 +412,9 @@ def fused_train_step(params: SirenParams, m_state: SirenParams, v_state: SirenPa
     computed here in float32, so nothing syncs).  Any B: the kernel masks
     its last CTA's rows.  `loss_out`: optional 0-d f32 tensor the loss is
     written into (the training loop passes a slot of its loss buffer).
+    `mm_dtype`: None or "bfloat16" (see the module docstring).
+    `corrections`: (c1, c2) in place of the bias corrections of `step` (the
+    step-anatomy probes of profiling/kernel_prof.py run with (1, 1)).
     Returns (params, m_state, v_state, loss).
 
     CUDA tensors launch the kernel of csrc/fused_step.cu (raising if it
@@ -387,11 +422,12 @@ def fused_train_step(params: SirenParams, m_state: SirenParams, v_state: SirenPa
     """
     if x.device.type == "cpu":
         return fused_train_step_plain(params, m_state, v_state, x, y, mask,
-                                      lr, step, mspec, dim_out, loss_out)
+                                      lr, step, mspec, dim_out, loss_out, mm_dtype,
+                                      corrections)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     loss_out = _launch(params, m_state, v_state, x, y, mask, lr, step, mspec, dim_out,
-                       loss_out, None)
+                       loss_out, None, mm_dtype, corrections)
     fused_train_step.launches += 1
     return params, m_state, v_state, loss_out
 
@@ -400,7 +436,7 @@ fused_train_step.launches = 0
 
 
 def fused_expert_step_plain(params, m_state, v_state, x, y, mask, lr, step,
-                            mspec: ModelSpec, dim_out: int, loss_out=None):
+                            mspec: ModelSpec, dim_out: int, loss_out=None, mm_dtype=None):
     """K2's function in plain torch ops: `fused_train_step_plain` on each
     expert's slices in turn (in place on the stacks).  mask: (B,) shared or
     (E, B).  Returns (params, m, v, loss (E,))."""
@@ -412,7 +448,7 @@ def fused_expert_step_plain(params, m_state, v_state, x, y, mask, lr, step,
             unstack_params(params, e), unstack_params(m_state, e),
             unstack_params(v_state, e), x[e], y[e],
             mask[e] if mask.dim() == 2 else mask, lr, step, mspec, dim_out,
-            loss_out=loss_out[e],
+            loss_out=loss_out[e], mm_dtype=mm_dtype,
         )
     return params, m_state, v_state, loss_out
 
@@ -420,15 +456,16 @@ def fused_expert_step_plain(params, m_state, v_state, x, y, mask, lr, step,
 def fused_expert_step(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
                       x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
                       lr: float, step: int, mspec: ModelSpec, dim_out: int,
-                      loss_out: torch.Tensor | None = None):
+                      loss_out: torch.Tensor | None = None, mm_dtype=None):
     """One fused training step of E independent experts, in place.
 
     params/m/v leaves carry a leading expert axis (weights (E, in, out),
     biases (E, out)), contiguous; x: (E, B, padded_in); y: (E, B, dim_out);
     mask: (B,) shared or (E, B) per expert.  lr and the Adam step are
     shared; each expert's loss is scaled by its own mask count.
-    `loss_out`: optional (E,) f32 tensor the losses are written into.
-    Returns (params, m_state, v_state, loss (E,)).
+    `loss_out`: optional (E,) f32 tensor the losses are written into;
+    `mm_dtype` as for `fused_train_step`.  Returns (params, m_state,
+    v_state, loss (E,)).
 
     CUDA tensors launch csrc/fused_step.cu with an expert grid axis (one
     launch pair for all experts; raising if it cannot build or launch); CPU
@@ -436,11 +473,11 @@ def fused_expert_step(params: SirenParams, m_state: SirenParams, v_state: SirenP
     """
     if x.device.type == "cpu":
         return fused_expert_step_plain(params, m_state, v_state, x, y, mask,
-                                       lr, step, mspec, dim_out, loss_out)
+                                       lr, step, mspec, dim_out, loss_out, mm_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     loss_out = _launch(params, m_state, v_state, x, y, mask, lr, step, mspec, dim_out,
-                       loss_out, x.shape[0])
+                       loss_out, x.shape[0], mm_dtype)
     fused_expert_step.launches += 1
     return params, m_state, v_state, loss_out
 
@@ -449,7 +486,7 @@ fused_expert_step.launches = 0
 
 
 def fused_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs, step0,
-                           mspec: ModelSpec, dim_out: int, loss_out=None):
+                           mspec: ModelSpec, dim_out: int, loss_out=None, mm_dtype=None):
     """K3's function in plain torch ops: k chained `fused_train_step_plain`
     calls, step s at Adam step step0 + s with lrs[s] (in place).  Returns
     (params, m, v, losses (k,))."""
@@ -457,22 +494,22 @@ def fused_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs, step0,
         loss_out = torch.empty((X.shape[0],), dtype=torch.float32, device=X.device)
     for s, lr in enumerate(lrs):
         fused_train_step_plain(params, m_state, v_state, X[s], Y[s], masks[s], lr, step0 + s,
-                               mspec, dim_out, loss_out=loss_out[s])
+                               mspec, dim_out, loss_out=loss_out[s], mm_dtype=mm_dtype)
     return params, m_state, v_state, loss_out
 
 
 def fused_multi_step(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
                      X: torch.Tensor, Y: torch.Tensor, masks: torch.Tensor,
                      lrs: Sequence[float], step0: int, mspec: ModelSpec, dim_out: int,
-                     loss_out: torch.Tensor | None = None):
+                     loss_out: torch.Tensor | None = None, mm_dtype=None):
     """k sequential fused training steps in one launch, in place.
 
     X: (k, B, padded_in) f32; Y: (k, B, dim_out) f32; masks: (k, B) f32;
     `lrs`: the k learning rates, host numbers; `step0`: the 1-indexed Adam
     step of the first step (each step's bias corrections are computed on
     the host in float32, as `fused_train_step` computes them).  `loss_out`:
-    optional (k,) f32 tensor the losses are written into.  Returns
-    (params, m_state, v_state, losses (k,)).
+    optional (k,) f32 tensor the losses are written into; `mm_dtype` as for
+    `fused_train_step`.  Returns (params, m_state, v_state, losses (k,)).
 
     The function of k `fused_train_step` calls, and on the card
     bit-identical to them.  CUDA tensors launch the persistent cooperative
@@ -483,11 +520,12 @@ def fused_multi_step(params: SirenParams, m_state: SirenParams, v_state: SirenPa
     """
     if X.device.type == "cpu":
         return fused_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs, step0,
-                                      mspec, dim_out, loss_out)
+                                      mspec, dim_out, loss_out, mm_dtype)
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     loss_out, fused_multi_step.grid = _launch_multi(
-        params, m_state, v_state, X, Y, masks, lrs, step0, mspec, dim_out, loss_out, None)
+        params, m_state, v_state, X, Y, masks, lrs, step0, mspec, dim_out, loss_out, None,
+        mm_dtype)
     fused_multi_step.launches += 1
     return params, m_state, v_state, loss_out
 
@@ -497,7 +535,8 @@ fused_multi_step.grid = 0  # CTAs in the last launch's cooperative grid
 
 
 def fused_expert_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs, step0,
-                                  mspec: ModelSpec, dim_out: int, loss_out=None):
+                                  mspec: ModelSpec, dim_out: int, loss_out=None,
+                                  mm_dtype=None):
     """K4's function in plain torch ops: k chained `fused_expert_step_plain`
     calls with the step's (B,) mask shared by the experts (in place).
     Returns (params, m, v, losses (k, E))."""
@@ -505,14 +544,15 @@ def fused_expert_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs, st
         loss_out = torch.empty(X.shape[:2], dtype=torch.float32, device=X.device)
     for s, lr in enumerate(lrs):
         fused_expert_step_plain(params, m_state, v_state, X[s], Y[s], masks[s], lr, step0 + s,
-                                mspec, dim_out, loss_out=loss_out[s])
+                                mspec, dim_out, loss_out=loss_out[s], mm_dtype=mm_dtype)
     return params, m_state, v_state, loss_out
 
 
 def fused_expert_multi_step(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
                             X: torch.Tensor, Y: torch.Tensor, masks: torch.Tensor,
                             lrs: Sequence[float], step0: int, mspec: ModelSpec,
-                            dim_out: int, loss_out: torch.Tensor | None = None):
+                            dim_out: int, loss_out: torch.Tensor | None = None,
+                            mm_dtype=None):
     """k sequential fused steps of E independent experts in one launch.
 
     params/m/v leaves carry a leading expert axis, as for
@@ -520,7 +560,8 @@ def fused_expert_multi_step(params: SirenParams, m_state: SirenParams, v_state: 
     kernel's layout); Y: (k, E, B, dim_out); masks: (k, B), step s's mask
     shared by every expert; lrs, step0 as for `fused_multi_step`.
     `loss_out`: optional (k, E) f32 tensor (step-major, where the JAX kernel
-    returns (E, k)).  Returns (params, m_state, v_state, losses (k, E)).
+    returns (E, k)); `mm_dtype` as for `fused_train_step`.  Returns
+    (params, m_state, v_state, losses (k, E)).
 
     The function of k `fused_expert_step` calls, and on the card
     bit-identical to them; expert e is `fused_multi_step` on its slices.
@@ -530,12 +571,12 @@ def fused_expert_multi_step(params: SirenParams, m_state: SirenParams, v_state: 
     """
     if X.device.type == "cpu":
         return fused_expert_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs,
-                                             step0, mspec, dim_out, loss_out)
+                                             step0, mspec, dim_out, loss_out, mm_dtype)
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     loss_out, fused_expert_multi_step.grid = _launch_multi(
         params, m_state, v_state, X, Y, masks, lrs, step0, mspec, dim_out, loss_out,
-        X.shape[1])
+        X.shape[1], mm_dtype)
     fused_expert_multi_step.launches += 1
     return params, m_state, v_state, loss_out
 
@@ -546,13 +587,14 @@ fused_expert_multi_step.grid = 0
 
 def reference_train_step(params, m_state, v_state, x, y, mask, lr, step,
                          mspec: ModelSpec, dim_out: int, match_kernel: bool = False,
-                         loss_out=None):
+                         loss_out=None, mm_dtype=None):
     """The oracle step, in place on params/m/v.  By default exact
-    `torch.sin` + autograd; `match_kernel=True` replays the kernel's
-    numerics (shared-reduction sincos, the hand-derived backward)."""
+    `torch.sin` + autograd in f32, whatever `mm_dtype` (as the JAX oracle);
+    `match_kernel=True` replays the kernel's numerics (shared-reduction
+    sincos, the hand-derived backward, the `mm_dtype` casts)."""
     if match_kernel:
         return fused_train_step_plain(params, m_state, v_state, x, y, mask,
-                                      lr, step, mspec, dim_out, loss_out)
+                                      lr, step, mspec, dim_out, loss_out, mm_dtype)
     from lbdrn_msic_tpu_torch.models.siren import forward
 
     leaves = [t.detach().requires_grad_(True) for t in params.leaves()]

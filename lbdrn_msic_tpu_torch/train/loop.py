@@ -20,9 +20,11 @@ call of the expert step (kernel K2) for all experts.  With `multi_k`, the
 fused loops run each epoch in chunks of k steps instead: one gather of the
 chunk's batches and one multi-step call (K3, or K4 for experts), the same
 function as k single steps and, on the card, bit-identical to them.
-Neither loop syncs with the device inside an epoch: per-step losses land
-in a preallocated device tensor, and the best-params rule reads one scalar
-per evaluated epoch (per expert).
+`mm_dtype="bfloat16"` (opt-in, as in the JAX package) rounds the operands
+of the fused steps' products to bf16; the eval stays f32.  Neither loop
+syncs with the device inside an epoch: per-step losses land in a
+preallocated device tensor, and the best-params rule reads one scalar per
+evaluated epoch (per expert).
 
 Randomness (init params, epoch permutations) is drawn from a CPU
 `torch.Generator`, so CPU and card runs see the same numbers; tests inject
@@ -211,6 +213,7 @@ def fit(
     C: int,
     use_fused: Optional[bool] = None,
     multi_k: Optional[int] = None,
+    mm_dtype: Optional[str] = None,
     init: Optional[SirenParams] = None,
     perms: Optional[Sequence[np.ndarray]] = None,
     device=None,
@@ -227,6 +230,8 @@ def fit(
     `multi_k` (fused only; resolved by `multi_step_k`): k steps per
     `fused_multi_step` call (kernel K3), each epoch split by `_chunks`, the
     chunk's batches gathered at once; the result is the per-step fit's.
+    `mm_dtype` (None or "bfloat16"): the fused steps' product operands, as
+    `fused_train_step` takes it; the exact step and the eval ignore it.
     """
     dev = resolve_device(device)
     if use_fused is None:
@@ -269,7 +274,8 @@ def fit(
                     fused_multi_step(params, m_state, v_state, xb.view(kc, bs, padded_in),
                                      yb.view(kc, bs, C), masks[s0 : s0 + kc],
                                      [schedule(count + s) for s in range(kc)], count + 1,
-                                     mspec, C, loss_out=step_losses[epoch, s0 : s0 + kc])
+                                     mspec, C, loss_out=step_losses[epoch, s0 : s0 + kc],
+                                     mm_dtype=mm_dtype)
                     count += kc
             else:
                 for s in range(steps):
@@ -277,7 +283,7 @@ def fit(
                     torch.index_select(yg, 0, gi[s], out=ybuf)
                     step_fn(params, m_state, v_state, xbuf.view(bs, padded_in),
                             ybuf.view(bs, C), masks[s], schedule(count), count + 1,
-                            mspec, C, loss_out=step_losses[epoch, s])
+                            mspec, C, loss_out=step_losses[epoch, s], mm_dtype=mm_dtype)
                     count += 1
 
             if tspec.epochs == 1:
@@ -300,9 +306,10 @@ def fit(
 
 
 def _exact_expert_step(params, m_state, v_state, x, y, mask, lr, step, mspec, dim_out,
-                       loss_out):
+                       loss_out, mm_dtype=None):
     """The exact autograd step on each expert's slices in turn: what
-    `fit_rate_experts(use_fused=False)` trains with."""
+    `fit_rate_experts(use_fused=False)` trains with (f32 whatever
+    `mm_dtype`, as the exact oracle)."""
     for e in range(x.shape[0]):
         reference_train_step(unstack_params(params, e), unstack_params(m_state, e),
                              unstack_params(v_state, e), x[e], y[e], mask, lr, step,
@@ -323,6 +330,7 @@ def fit_rate_experts(
     use_fused: Optional[bool] = None,
     staging: str = "full",
     multi_k: int = 0,
+    mm_dtype: Optional[str] = None,
     img_of: Optional[tuple] = None,
     hws=None,
     init: Optional[SirenParams] = None,
@@ -348,7 +356,8 @@ def fit_rate_experts(
     `multi_k` (fused only; resolved by `multi_step_k`): k steps of every
     expert per `fused_expert_multi_step` call (kernel K4), each epoch split
     by `_chunks`, the chunk's batches staged at once in (k, E, bs,
-    padded_in); the result is the per-step fit's.
+    padded_in); the result is the per-step fit's.  `mm_dtype` as for
+    `fit`: the fused expert steps' product operands.
 
     Returns a FitResult whose fields carry a leading expert axis.  Banded
     staging, cross-image experts (`img_of`) and bucket masks (`hws`) are
@@ -441,13 +450,15 @@ def fit_rate_experts(
                                             masks[s0 : s0 + kc],
                                             [schedule(count + s) for s in range(kc)],
                                             count + 1, mspec, C,
-                                            loss_out=losses[epoch, s0 : s0 + kc])
+                                            loss_out=losses[epoch, s0 : s0 + kc],
+                                            mm_dtype=mm_dtype)
                     count += kc
             else:
                 for s in range(steps):
                     stage(gi[s], 1)
                     step_fn(params, m_state, v_state, xbuf[0], ybuf[0], masks[s],
-                            schedule(count), count + 1, mspec, C, loss_out=losses[epoch, s])
+                            schedule(count), count + 1, mspec, C, loss_out=losses[epoch, s],
+                            mm_dtype=mm_dtype)
                     count += 1
 
             if tspec.epochs == 1:

@@ -112,6 +112,35 @@ def test_expert_step_matches_jax_kernel(bc, nl, dim_in, dim_out, B, mask_kind):
             np.testing.assert_array_equal(a, w)
 
 
+def test_expert_step_bf16_matches_jax_kernel():
+    """K2's function at mm_dtype "bfloat16" vs the JAX kernel at
+    mm_dtype="bfloat16" in interpret mode (bench widths, per-expert masks):
+    the bf16 tiers of tests/test_torch_fused_step.py::_assert_bf16_step_close
+    (m, v within 2e-2 of the largest, loss rtol 1e-4, params tight where
+    |g| is above the bf16 noise, within 2*lr elsewhere)."""
+    ws, bs, x, y, mask = _expert_setup(64, 2, 100, 4, 1000, "per_expert", seed=8)
+    jp = JParams([jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
+    jz = jax.tree.map(jnp.zeros_like, jp)
+    with pltpu.force_tpu_interpret_mode():
+        jout = jfs.fused_expert_step(jp, jz, jz, jnp.asarray(x), jnp.asarray(y),
+                                     jnp.asarray(mask), jnp.float32(1e-3), jnp.int32(1),
+                                     JModelSpec(), 4, tile=1000, mm_dtype="bfloat16")
+    pp, pm, pv = _port_state(ws, bs)
+    *_, loss = fs.fused_expert_step(pp, pm, pv, torch.from_numpy(x), torch.from_numpy(y),
+                                    torch.from_numpy(mask), 1e-3, 1, ModelSpec(), 4,
+                                    mm_dtype="bfloat16")
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jout[3]), rtol=1e-4)
+    for got, want in ((pm, jout[1]), (pv, jout[2])):
+        scale = max(float(np.abs(b).max()) for b in _leaves(want))
+        for a, b in zip(_leaves(got), _leaves(want)):
+            np.testing.assert_allclose(a, b, rtol=0, atol=2e-2 * scale)
+    gscale = max(float(np.abs(m).max()) for m in _leaves(jout[1]))
+    for a, b, m in zip(_leaves(pp), _leaves(jout[0]), _leaves(jout[1])):
+        well = np.abs(m) >= 2e-2 * gscale
+        np.testing.assert_allclose(a[well], b[well], rtol=2e-4, atol=1e-6)
+        np.testing.assert_allclose(a, b, rtol=0, atol=2e-3)
+
+
 @pytest.mark.parametrize("mask_kind", ["shared", "per_expert"])
 def test_expert_step_is_k1_per_expert(mask_kind):
     """Expert e of the expert step is K1's function on expert e's slices,

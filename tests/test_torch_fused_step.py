@@ -113,6 +113,70 @@ def test_step_matches_jax_kernel_and_oracle(bc, nl, dim_in, dim_out):
     _assert_step_close(port, oracle, loss, oloss)
 
 
+def _assert_bf16_step_close(port, ref, loss, ref_loss, n_steps=1, lr=1e-3):
+    """Steps at mm_dtype "bfloat16" vs the JAX kernel's: both round the same
+    operands to bf16, but a last-bit f32 difference upstream (summation
+    order) can flip an operand's bf16 rounding (2^-8 relative), so m and v
+    are held at the bf16 gradient tier of tests/test_fused_step.py:166
+    (2e-2 of the largest), the loss at rtol 1e-4, and params tightly only
+    where |g| is above that noise (within 2*lr a step elsewhere)."""
+    pp, pm, pv = port
+    rp, rm, rv = ref
+    np.testing.assert_allclose(np.asarray(loss).reshape(-1), np.asarray(ref_loss).reshape(-1),
+                               rtol=1e-4)
+    for got, want in ((_leaves(pm), _leaves(rm)), (_leaves(pv), _leaves(rv))):
+        scale = max(float(np.abs(b).max()) for b in want)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, rtol=0, atol=2e-2 * scale)
+    gscale = max(float(np.abs(m).max()) for m in _leaves(rm))
+    for a, b, m in zip(_leaves(pp), _leaves(rp), _leaves(rm)):
+        well = np.abs(m) >= 2e-2 * gscale
+        np.testing.assert_allclose(a[well], b[well], rtol=2e-4, atol=1e-6)
+        np.testing.assert_allclose(a, b, rtol=0, atol=2 * lr * n_steps)
+
+
+def test_step_bf16_matches_jax_kernel():
+    """K1's function at mm_dtype "bfloat16" vs the JAX kernel at
+    mm_dtype="bfloat16" in interpret mode (bench widths), and the port's
+    match_kernel oracle with the same casts vs the JAX one."""
+    ws, bs, x, y, mask = _setup(64, 2, 100, 4, 2 * TILE, seed=3, mask_frac=0.2)
+    jspec, spec = JModelSpec(), ModelSpec()
+    xt, yt, mt = map(torch.from_numpy, (x, y, mask))
+    with pltpu.force_tpu_interpret_mode():
+        jout = jfs.fused_train_step(*_jax_state(ws, bs), jnp.asarray(x), jnp.asarray(y),
+                                    jnp.asarray(mask), np.float32(1e-3), np.int32(1), jspec, 4,
+                                    tile=TILE, mm_dtype="bfloat16")
+    port = _port_state(ws, bs)
+    *_, loss = fs.fused_train_step(*port, xt, yt, mt, 1e-3, 1, spec, 4, mm_dtype="bfloat16")
+    _assert_bf16_step_close(port, jout[:3], loss, jout[3])
+
+    jref = jfs.reference_train_step(*_jax_state(ws, bs), jnp.asarray(x), jnp.asarray(y),
+                                    jnp.asarray(mask), np.float32(1e-3), np.int32(1), jspec, 4,
+                                    match_kernel=True, mm_dtype="bfloat16")
+    oracle = _port_state(ws, bs)
+    *_, oloss = fs.reference_train_step(*oracle, xt, yt, mt, 1e-3, 1, spec, 4,
+                                        match_kernel=True, mm_dtype="bfloat16")
+    _assert_bf16_step_close(oracle, jref[:3], oloss, jref[3])
+
+
+def test_mm_dtype_none_is_the_f32_step():
+    """mm_dtype=None is the default, f32 step bit for bit (so every other
+    test's numbers are those of the f32 kernel); "bfloat16" is a different
+    step; any other value raises."""
+    ws, bs, x, y, mask = _setup(64, 2, 100, 4, 512, seed=4, mask_frac=0.1)
+    args = (torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(mask), 1e-3, 1,
+            ModelSpec(), 4)
+    default, none, bf16 = _port_state(ws, bs), _port_state(ws, bs), _port_state(ws, bs)
+    *_, l_default = fs.fused_train_step(*default, *args)
+    *_, l_none = fs.fused_train_step(*none, *args, mm_dtype=None)
+    *_, l_bf16 = fs.fused_train_step(*bf16, *args, mm_dtype="bfloat16")
+    assert float(l_default) == float(l_none) != float(l_bf16)
+    for a, b in zip(_leaves(default[0]) + _leaves(default[1]), _leaves(none[0]) + _leaves(none[1])):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="mm_dtype"):
+        fs.fused_train_step(*_port_state(ws, bs), *args, mm_dtype="float16")
+
+
 @pytest.mark.parametrize(
     "B,mask_frac", [(1000, 0.0), (2048, 0.3), (777, 0.5), (300, 1.0)]
 )

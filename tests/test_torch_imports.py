@@ -33,6 +33,11 @@ PORT_MODULES = [
     "lbdrn_msic_tpu_torch.train.loop",
     "lbdrn_msic_tpu_torch.decode.reconstruct",
     "lbdrn_msic_tpu_torch.codec",
+    "lbdrn_msic_tpu_torch.profiling",
+    "lbdrn_msic_tpu_torch.profiling.kernel_prof",
+    "lbdrn_msic_tpu_torch.profiling.step_prof",
+    "lbdrn_msic_tpu_torch.profiling.mm_ab",
+    "lbdrn_msic_tpu_torch.profiling.mfu_experts",
     "chip_smoke",
 ]
 
@@ -74,8 +79,18 @@ def test_entry_points_default_to_cuda():
     from lbdrn_msic_tpu_torch.codec import decode_stream, encode_image
     from lbdrn_msic_tpu_torch.core.config import CodecConfig
 
+    from lbdrn_msic_tpu_torch.profiling import kernel_prof, mfu_experts, mm_ab, step_prof
+
     img = np.zeros((1, 8, 8), np.uint16)
     with pytest.raises(RuntimeError, match="CUDA"):
         encode_image(img, CodecConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         decode_stream(b"")
+    # the profiling entry points: each refuses before any work
+    ws, bs, x, y, mask = kernel_prof.make_inputs(batch=16, device="cpu")
+    for run in (lambda: kernel_prof.run_steps(ws, bs, x, y, mask, "full_t", steps=1),
+                kernel_prof.make_inputs, lambda: kernel_prof.main(["full_t"]),
+                lambda: step_prof.main([]), lambda: mm_ab.main([]), lambda: mm_ab.ab(1),
+                lambda: mfu_experts.main([])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()

@@ -128,6 +128,44 @@ def test_expert_multi_step_matches_jax_kernel():
     _assert_chunk_close(port, jout[:3], losses.numpy().T, jout[3], max(lrs))
 
 
+def _assert_bf16_chunk_close(port, ref, losses, ref_losses, n_steps, lr):
+    """A chunk at mm_dtype "bfloat16" vs the JAX kernel's: the bf16 tiers of
+    tests/test_torch_fused_step.py::_assert_bf16_step_close (m, v within
+    2e-2 of the largest, loss rtol 1e-4, params tight where |g| is above
+    the bf16 noise, within 2*lr a step elsewhere)."""
+    np.testing.assert_allclose(np.asarray(losses), np.asarray(ref_losses), rtol=1e-4)
+    for got, want in ((port[1], ref[1]), (port[2], ref[2])):
+        scale = max(float(np.abs(b).max()) for b in _leaves(want))
+        for a, b in zip(_leaves(got), _leaves(want)):
+            np.testing.assert_allclose(a, b, rtol=0, atol=2e-2 * scale)
+    gscale = max(float(np.abs(m).max()) for m in _leaves(ref[1]))
+    for a, b, m in zip(_leaves(port[0]), _leaves(ref[0]), _leaves(ref[1])):
+        well = np.abs(m) >= 2e-2 * gscale
+        np.testing.assert_allclose(a[well], b[well], rtol=2e-4, atol=1e-6)
+        np.testing.assert_allclose(a, b, rtol=0, atol=2 * lr * n_steps)
+
+
+@pytest.mark.parametrize("E", [None, 3])
+def test_multi_step_bf16_matches_jax_kernel(E):
+    """K3's (E=None) and K4's (E=3) functions at mm_dtype "bfloat16" vs the
+    JAX kernels at mm_dtype="bfloat16" in interpret mode: bench widths,
+    B=1024, k=2 from step0 = 3, a masked tail on step 1."""
+    lrs = [1e-3, 5e-4]
+    ws, bs, X, Y, masks = _setup(64, 2, 100, 4, 1024, 2, E=E, seed=30)
+    jp = JParams([jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
+    jz = jax.tree.map(jnp.zeros_like, jp)
+    jfn, fn = ((jfs.fused_multi_step, fs.fused_multi_step) if E is None else
+               (jfs.fused_expert_multi_step, fs.fused_expert_multi_step))
+    with pltpu.force_tpu_interpret_mode():
+        jout = jfn(jp, jz, jz, jnp.asarray(X), jnp.asarray(Y), jnp.asarray(masks),
+                   jnp.float32(lrs), jnp.int32(3), JModelSpec(), 4, mm_dtype="bfloat16")
+    port = _state(ws, bs)
+    *_, losses = fn(*port, torch.from_numpy(X), torch.from_numpy(Y), torch.from_numpy(masks),
+                    lrs, 3, ModelSpec(), 4, mm_dtype="bfloat16")
+    jl = np.asarray(jout[3]) if E is None else np.asarray(jout[3]).T
+    _assert_bf16_chunk_close(port, jout[:3], losses.numpy(), jl, 2, max(lrs))
+
+
 def test_multi_step_is_chained_steps():
     """K3's function is k chained `fused_train_step` calls bit for bit, and
     expert e of K4's is K3's on expert e's slices; both write into the

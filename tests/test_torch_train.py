@@ -110,6 +110,42 @@ def test_fit_matches_jax(use_fused, g):
     np.testing.assert_allclose(got.best_mse, float(ref.best_mse), rtol=1e-5)
 
 
+def test_fit_bf16_matches_jax():
+    """`fit(mm_dtype="bfloat16")` vs the JAX fit at mm_dtype="bfloat16"
+    (interpret mode), the JAX init and permutations injected: 48x40x4, bs
+    256, g=8, e=3 (24 steps).  Epoch losses and best MSE rtol 1e-4, ten
+    times the f32 fit's: a last-bit f32 difference upstream can flip an
+    operand's bf16 rounding (2^-8 of one term of a sum), and Adam carries
+    that on; best epoch exact.  The f32 fit is a different trajectory, and
+    the port's one-expert `fit_rate_experts` at bf16 is this fit bit for
+    bit (the expert step passes mm_dtype on)."""
+    H, W, C, e, g = 48, 40, 4, 3, 8
+    img, (jplane, jscale, jlsb), (plane, scale, lsb) = _prep(H, W, C)
+    jt = JTrainSpec(batch_size=256, epochs=e, sample_granule=g)
+    t = TrainSpec(batch_size=256, epochs=e, sample_granule=g)
+    label_scale = np.float32(jeng.lsb_scale(K))
+    key = jax.random.PRNGKey(11)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jloop.fit(jplane, jscale, jlsb, label_scale, key, JFeatureSpec(), JModelSpec(), jt,
+                        H, W, C, staging="cached", use_fused=True, mm_dtype="bfloat16")
+    jp, perms = _jax_draws(key, H * W // g, 100, C, JModelSpec(), e)
+    init = params_from_numpy([np.asarray(w) for w in jp.weights],
+                             [np.asarray(b) for b in jp.biases])
+    run = lambda mmd: loop.fit(plane, scale, lsb, float(label_scale), None, FeatureSpec(),
+                               ModelSpec(), t, H, W, C, use_fused=True, mm_dtype=mmd, init=init,
+                               perms=perms, device="cpu")
+    got = run("bfloat16")
+    np.testing.assert_allclose(got.epoch_losses.numpy(), np.asarray(ref.epoch_losses), rtol=1e-4)
+    np.testing.assert_allclose(got.best_mse, float(ref.best_mse), rtol=1e-4)
+    assert got.best_epoch == int(ref.best_epoch)
+    f32 = run(None)
+    assert not torch.equal(f32.step_losses, got.step_losses)
+    expert = loop.fit_rate_experts(torch.from_numpy(img.astype(np.int32)), (K,), None,
+                                   FeatureSpec(), ModelSpec(), t, H, W, C, use_fused=True,
+                                   mm_dtype="bfloat16", init=init, perms=perms, device="cpu")
+    assert torch.equal(expert.step_losses[0], got.step_losses)
+
+
 def test_fit_single_epoch_takes_final_params():
     H, W, C = 24, 20, 4
     _, _, (plane, scale, lsb) = _prep(H, W, C)
