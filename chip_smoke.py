@@ -13,12 +13,16 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            the bench shape (B=8192, 128->64->64->4), full and ragged/masked
            batches, and at a wider layer set (bc=128, nl=3, C=8); a 5-step
            chain against the exact autograd oracle; the kernel's CUDA-event
-           time beside its bound and the plain time
+           time beside its bound and the plain time; each pass's device
+           time by kernel name (a torch.profiler window over 50 steps; pass
+           2 is a programmatic dependent launch whose span opens during pass
+           1, so the line also gives the step's time less pass 1's); the
+           design csrc/fused_step.cu fixes (no clusters, FFMA products)
   kernels_experts  K2, the expert step (same source, an expert grid axis),
            at the sweep's shape (E=4, B=8192): against its plain version,
            and bit for bit against K1 on each expert's slices, full,
            ragged with per-expert masks, and at the wider layer set; time,
-           bound, plain time
+           pass split and design as for K1, bound, plain time
   encode   2048x2048x4 12-bit synthetic scene, seed 42, K=5, g=8, e=10,
            base codec lpc: one warm and three timed encodes, each of which
            must launch K1 exactly epochs x steps = 5120 times (and K2 never)
@@ -78,6 +82,11 @@ import sys
 import time
 
 
+# thread-block cluster size and f32 product routine of csrc/fused_step.cu's
+# first pass, fixed in the source (PERF.md has the times of the others)
+FUSED_STEP_DESIGN = {"cluster": 1, "product": "ffma"}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -124,6 +133,39 @@ def cuda_ms(fn, n: int, rounds: int = 3, warm: int = 10) -> float:
         torch.cuda.synchronize()
         per_call.append(start.elapsed_time(end) / n)
     return float(np.median(per_call))
+
+
+def pass_times(fn, n: int = 50) -> dict:
+    """Device ms per call of each kernel that n calls of fn launch, by
+    kernel name (a step's two passes), from a short torch.profiler window."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", 0) or getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            name = re.sub(r"\(.*", "", ev.key.replace("(anonymous namespace)::", ""))
+            out[name.replace("void ", "")] = {"ms_per_call": us / 1e3 / n,
+                                              "launches_per_call": ev.count / n}
+    return out
+
+
+def pass1_ms(passes: dict) -> float:
+    """Pass 1's device ms per step in a `pass_times` result.  Pass 2 is a
+    programmatic dependent launch: its span opens while pass 1 runs, so
+    what it adds to a step is the step's time less pass 1's."""
+    return sum(v["ms_per_call"] for k, v in passes.items() if k.startswith("step_partials"))
 
 
 def check_step(k_state, k_loss, p_state, p_loss, lr: float = 1e-3):
@@ -250,6 +292,7 @@ def phase_kernels(card: str):
     # timing at the bench shape (state keeps training; lr is irrelevant)
     tp, tm, tv = clone(params0), clone(zeros), clone(zeros)
     ms = cuda_ms(lambda: fs.fused_train_step(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C), 300)
+    passes = pass_times(lambda: fs.fused_train_step(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C))
     plain_ms = cuda_ms(
         lambda: fs.fused_train_step_plain(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C), 30)
     dims = [F] + [w.shape[1] for w in params0.weights]
@@ -259,8 +302,9 @@ def phase_kernels(card: str):
                           ops, nbytes, ms, plain_ms, max_err)
     emit({"phase": "kernels", "cases": cases, "chain_losses": losses,
           "chain_param_drift": drift, "ops": ops, "bytes": nbytes,
-          "ms": ms, "plain_ms": plain_ms, "bound_ms": kernel["bound_ms"],
-          "card": card})
+          "ms": ms, "passes": passes, "pass_2_after_pass_1_ms": ms - pass1_ms(passes),
+          "design": FUSED_STEP_DESIGN, "plain_ms": plain_ms,
+          "bound_ms": kernel["bound_ms"], "card": card})
     return kernel
 
 
@@ -334,6 +378,7 @@ def phase_expert_kernels(card: str):
     tp = init(mspec, C)
     tm, tv = tp.map(torch.zeros_like), tp.map(torch.zeros_like)
     ms = cuda_ms(lambda: fs.fused_expert_step(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C), 300)
+    passes = pass_times(lambda: fs.fused_expert_step(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C))
     plain_ms = cuda_ms(
         lambda: fs.fused_expert_step_plain(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C), 30)
     dims = [F] + [w.shape[-1] for w in tp.weights]
@@ -342,8 +387,9 @@ def phase_expert_kernels(card: str):
     kernel = kernel_entry("fused_expert_step", "lbdrn_msic_tpu/ops/fused_step.py:765", card,
                           E * ops, E * nbytes, ms, plain_ms, max_err)
     emit({"phase": "kernels_experts", "cases": cases, "E": E, "ops": E * ops,
-          "bytes": E * nbytes, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": kernel["bound_ms"], "card": card})
+          "bytes": E * nbytes, "ms": ms, "passes": passes,
+          "pass_2_after_pass_1_ms": ms - pass1_ms(passes), "design": FUSED_STEP_DESIGN,
+          "plain_ms": plain_ms, "bound_ms": kernel["bound_ms"], "card": card})
     return kernel
 
 
@@ -887,6 +933,22 @@ def phase_kernel_prof(card: str):
     return kernels
 
 
+def busy_seconds(prof) -> float:
+    """Seconds in which the device ran at least one kernel, copy or set: the
+    union of the device events' intervals (a sum would count twice the
+    time in which a programmatic dependent launch overlaps its primary)."""
+    import torch
+
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
+
+
 def phase_profile(what: str, run, secs):
     """One more run of `run` under torch.profiler: device time by kernel
     name and the device's busy share of the run's wall time."""
@@ -909,9 +971,10 @@ def phase_profile(what: str, run, secs):
         if dev_us > 0:
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
+    busy = busy_seconds(prof)
     emit({"phase": "profile", "of": what, "wall_s_profiled": wall,
           "wall_s_unprofiled": min(secs), "device_busy_s": busy,
+          "device_kernel_time_sum_s": sum(r[0] for r in rows) / 1e6,
           "device_busy_share": busy / wall,
           "top": [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
                   for us, k, n in rows[:12]]})

@@ -15,80 +15,105 @@
 // whole batch, and one Adam update with torch bias correction, in place.
 // loss = SSE / (max(sum mask, 1) * C).
 //
-// Design.  The TPU walks the batch tiles in order and carries the gradient
-// sums in VMEM; here CTAs run in parallel, so the step is two launches:
-//   pass 1  one CTA per `rows` batch rows (64 at the bench shape: 128 CTAs
-//           for B = 8192, one wave on 132 SMs).  x tile, weights, the
-//           activations and cos caches live in shared memory (~184 KB at
-//           128->64->64->4).  Wider layer sets take fewer rows per CTA and,
-//           where even 8 rows do not fit, read the weights from global memory
-//           (the host picks; see ops/fused_step.py::cta_layout).  It writes its
-//           partial dW/db, its SSE and its mask count to a scratch row of its
-//           own.  Rows past B are masked.
-//   pass 2  one thread per parameter sums the partials in CTA order, scales
-//           by inv_scale and applies Adam to params, m and v in place;
-//           thread 0 also writes the loss.
-// No float atomics: the step is deterministic run to run.
-//
-// Experts (K2).  Both passes take the expert from blockIdx.y: grid
-// (n_cta, E) for the partials, (ceil(P/256), E) for the reduction + Adam.
-// Every per-expert array is an expert-major stack ((E, in, out) weights,
-// (E, out) biases and their m, v; (E, B, F) x; (E, B, C) y; (E, n_cta, P+2)
-// scratch; (E,) loss), so expert e is K1's computation at offset e times
-// the array's per-expert size; the mask's per-expert stride is an argument
-// (0 when one (B,) mask is shared).  The count, and so inv_scale, is per
-// expert; lr, c1 and c2 are shared.  K1 is the E = 1 launch: its offsets
-// are all 0, and expert e of K2 is bit-identical to K1 on expert e's slices
-// (same code, same rows per CTA, same CTA-ordered sums).
-//
-// Multi-step (K3, K4).  The TPU kernels keep params and Adam state in VMEM
-// over k grid steps to save a runtime's per-call overhead; here what k
-// steps in one launch save is the host's per-step work (two launches, a
-// batch gather and the schedule a step).  One cooperative launch of
-// min(E * n_tiles, resident CTAs) persistent CTAs runs, for each step s:
-//   1. the CTAs stride over the (expert, row tile) items; item (e, t) is
-//      exactly K2's CTA (t, e): same rows, same code, same scratch row;
-//   2. grid barrier;
-//   3. the grid's threads stride over the E * P parameters: each sums its
-//      partials in tile order, takes inv_scale from the tiles' counts and
-//      applies Adam exactly as pass 2 does; parameter 0 writes loss[s, e];
-//   4. grid barrier.
-// So every step is bit-identical to K2's (and, per expert, K1's).  Data
-// that the launch itself rewrites (params, m, v, the partials) is read with
-// ld.global.cg after the barriers: from L2, never from a stale L1 line or
-// the read-only path.  lr, c1, c2 of step s come from a (k, 3) table; the
-// batch of step s lies at x + s * x_step (strides are arguments, so any
-// step- or expert-major layout works).  The barrier is an arrival counter
-// and a generation word in global memory (the pattern of cooperative_groups'
-// grid sync, written out so that the -shared build needs no relocatable
-// device code); the cooperative launch refuses a grid that is not wholly
-// resident, and the grid is sized by the occupancy query, so it cannot
-// deadlock.  At the bench widths one 184 KB CTA fits an SM: K3 (128 items)
-// is one wave, K4 at E = 4 (512 items) loops ~3.9 items per CTA.
-//
+// Two passes.  The TPU walks the batch tiles in order and carries the
+// gradient sums in VMEM; here CTAs run in parallel, so a step is two
+// launches:
+//   pass 1  `step_partials`: one CTA per `rows` batch rows (64 at the bench
+//           shape: 128 CTAs for B = 8192, one wave on 132 SMs, one 205 KB
+//           CTA of 8 warps per SM).  It writes its partial dW/db, SSE and
+//           mask count to a scratch row of its own (no float atomics).
+//   pass 2  `step_adam`: one CTA per 30 parameters (423 at the bench
+//           widths) sums the partial rows in a fixed two-level order and
+//           applies Adam to params, m and v in place.
 // Bound at the bench shape (B = 8192, 128->64->64->4): about 0.51 GFLOP
-// (forward 205.5 M, dW 205.5 M, dH 71.3 M, sincos ~26 M) against about
-// 4.7 MB of compulsory traffic (x is 4.2 MB).  In f32 on the CUDA cores
-// (67 TFLOP/s on an SXM card) that is ~7.6 us a step: compute-bound.  This
-// first version multiplies with FFMA from shared memory in 4x4 register
-// tiles and makes no attempt at that bound; the partial-gradient scratch
-// (128 x 50.7 KB = 6.5 MB written and read per step, resident in L2) is the
-// first thing a faster version removes, then tensor-core (3xTF32) products.
-// K2 does E times that work and traffic: at the sweep's E = 4, 512 CTAs
-// (3.9 waves on 132 SMs) and a ~30 us bound.  K3/K4 do k times K1/K2's.
+// (forward 205.5 M, dW 205.5 M, dH 71.3 M, sincos ~26 M) against about 4.7
+// MB of compulsory traffic: ~7.6 us a step on the CUDA cores (67 TFLOP/s),
+// compute-bound.  The first design took ~98 us, and its probes (K5)
+// showed the time was not in the products but in fixed work per CTA:
+// staging through dependent scalar loads before the first product, a
+// 16-way bank conflict in the dH product, scalar operand reads, a serial
+// 128-row walk in pass 2, serial bias sums.  This design (~44 us on an
+// H100 SXM, PERF.md) answers each in turn:
 //
+// 1. Asynchronous staging.  Thread 0 initialises one mbarrier per layer;
+//    warp 0 issues TMA 1-D bulk copies (cp.async.bulk ... complete_tx) of
+//    the x rows, of each layer's weights and bias, and of the y and mask
+//    rows.  Barrier 0 covers x, W0 and b0, barrier l W_l and b_l, the last
+//    one also y and mask, so layer 0's product starts as soon as x and W0
+//    have landed while the later layers' weights are still in flight.
+//    Rows past B are zero-filled in shared memory, not copied; an array
+//    whose address or size is not a 16-byte multiple (an odd head width, a
+//    ragged tile's y and mask) goes by 4-byte cp.async instead.  Each CTA
+//    copies the weights for itself: clusters of 2 and 4 CTAs sharing one
+//    multicast copy measured slower (PERF.md), so there are none.
+// 2. Operands without conflicts.  Activations, gradients and the x tile lie
+//    in shared memory at a row stride that is a multiple of 4 and not of 32
+//    (`row_stride`), and every product (`mmv`, step_async.cuh) reads 16-byte
+//    float4s: along k for a row-major left operand, whose 4 rows a thread
+//    owns are strided so that the rows one warp instruction reads sit on
+//    different banks; along i for a transposed one (x^T, h^T in dW); along j
+//    for the right operand, one row per instruction.  The dH product reads a
+//    W^T of layers 1.. staged (transposed in 4x4 register blocks) after the
+//    forward, not W in place.  Full tiles run an unrolled loop with no
+//    bounds test.  The bias-gradient column sums spread over all 256
+//    threads in a fixed tree (`col_sums`).  Widths whose weights do not fit
+//    beside 8 rows read them from global memory (a second instantiation;
+//    its dH product keeps mm4x4 on W in place).
+// 3. The reduction.  Pass 2 sums each parameter's partial rows in groups
+//    of TILE_GROUP tiles, each group in tile order, then the group sums in
+//    order (`two_level_sum`): 8 warps read 8 groups at once, each lane one
+//    column (30 parameters, the SSE and the mask count a CTA, so one round
+//    serves the loss too), and the order is fixed by the tile count alone.
+//    It is launched with programmatic dependent launch: pass 1 lets it
+//    launch at once and it waits (griddepcontrol.wait) before reading the
+//    partials, so its launch and start hide under pass 1.
+// 4. Products: FFMA.  3xTF32 on mma.sync m16n8k8, fragments read from the
+//    same layouts, measured 5-6 % slower at the bench shape (PERF.md).
+// What bounds the step now: pass 1, ~38 of the ~44 us (chip_smoke.py's
+// pass split), whose products take ~1.9 M FMA a CTA against ~8 us of FFMA
+// issue at the card's rate; and, at K2's E = 4, pass 2's reads of the 26 MB
+// of partials.
+
 // Arithmetic outside the matrix products uses explicitly rounded
 // operations (__fmul_rn / __fadd_rn: no FMA contraction), in the operation
 // order of the plain PyTorch version, so only summation order differs.
 //
+// Experts (K2).  Both passes take the expert from blockIdx.y: grid
+// (n_cta, E) for the partials, (ceil(P/30), E) for the reduction + Adam.
+// Every per-expert array is an expert-major stack ((E, in, out) weights,
+// (E, out) biases and their m, v; (E, B, F) x; (E, B, C) y; (E, n_cta, S)
+// scratch; (E,) loss), so expert e is K1's computation at offset e times
+// the array's per-expert size; the mask's per-expert stride is an argument
+// (0 when one (B,) mask is shared).  The count, and so inv_scale, is per
+// expert; lr, c1 and c2 are shared.  K1 is the E = 1 launch, and expert e
+// of K2 is bit-identical to K1 on expert e's slices (same code, same rows
+// per CTA, same sums).  K2 does E times K1's work: at the sweep's E = 4,
+// 512 CTAs (3.9 waves) and a ~30 us bound.
+//
+// Multi-step (K3, K4).  One cooperative launch of min(E * n_tiles, resident
+// CTAs) persistent CTAs runs, for each step s: the CTAs stride over the
+// (expert, row tile) items, item (e, t) exactly K2's CTA (t, e); grid
+// barrier; the grid's warps stride over K2's pass-2 chunks, one chunk a
+// warp (`adam_chunk_warp`: the same sums in the same order as pass 2's
+// CTA-wide `adam_chunk`, without its CTA barriers); grid barrier.  So every
+// step is bit-identical to K2's (and, per expert, K1's).  The mbarriers are
+// initialised once and their phase parity flips with each item a CTA runs;
+// each item starts with a proxy fence (the Adam phase wrote the params with
+// generic stores that the next bulk copies read) and a CTA barrier.  Data
+// that the launch rewrites is read through L2
+// (bulk copies, ld.global.cg).  lr, c1, c2 of step s come from a (k, 3)
+// table; the batch of step s lies at x + s * x_step.  The grid barrier is an
+// arrival counter and a generation word in global memory; the cooperative
+// launch refuses a grid that is not wholly resident, and the grid is sized
+// by the occupancy query, so it cannot deadlock.
+//
 // mm_dtype "bfloat16" (StepArgs.mm_bf16, every kernel above): a second
-// instantiation of the first pass rounds each product operand to bf16 as
-// mm4x4 reads it, where the JAX kernels cast both operands of each dot, and
-// multiplies on FFMA.  The product of two bf16 values is exact in f32, so
-// only the summation order differs from JAX's bf16 dot with f32
-// accumulation.  Tensor-core bf16 products belong to the redesign.
+// instantiation rounds each product operand to bf16 as it is read, where
+// the JAX kernels cast both operands of each dot, and multiplies on FFMA.
+// The product of two bf16 values is exact in f32, so only the summation
+// order differs from JAX's bf16 dot with f32 accumulation.
 
-#include "step_common.cuh"
+#include "step_async.cuh"
 
 namespace {
 
@@ -120,112 +145,207 @@ __device__ __forceinline__ void sincos_poly(float u, float* s, float* c) {
   *c = __fmul_rn(sg, pc);
 }
 
+// A product with the thread-tile height that keeps the threads busy: 4 x 4
+// tiles where there are at least 128 of them, else 1 x 4.
+template <bool kBf16, bool kATrans, int kBSrc, class EP>
+__device__ __forceinline__ void mm(int M, int N, int K, const float* A, int lda, const float* B,
+                                   int ldb, EP ep) {
+  if (((M + 3) >> 2) * ((N + 3) >> 2) >= THREADS / 2)
+    mmv<kBf16, kATrans, 4, kBSrc>(M, N, K, A, lda, B, ldb, ep);
+  else
+    mmv<kBf16, kATrans, 1, kBSrc>(M, N, K, A, lda, B, ldb, ep);
+}
+
 // The first pass for one work item: expert e's row tile t (batch rows
-// t*rows .. t*rows+rows-1).  Stages the tile, runs forward, masked SSE and
-// backward, and writes the item's partial dW/db, SSE and mask count to
-// scratch row e * n_tiles + t.  x, y, mask: expert e's batch.  kStageW:
-// weights and biases staged in shared memory (a separate instantiation, so
-// that its products read through shared-memory loads).  kBf16: every
-// product operand rounded to bf16 as it is read (mm_dtype "bfloat16", where
-// the JAX kernel casts both operands of each dot); the false instantiation
-// is the f32 code unchanged.
+// t*rows .. t*rows+rows-1).  Stages the tile asynchronously, runs forward,
+// masked SSE and backward, and writes the item's partial dW/db, SSE and
+// mask count to scratch row e * n_tiles + t (row stride S).  x, y, mask:
+// expert e's batch.  bars: a.L initialised mbarriers at the start of smem;
+// parity: the phase this item completes on them.  kStageW: weights,
+// biases and W^T staged in shared memory (else read from global memory).
+// kCG: global data that this launch rewrites is read through L2 only.
+// kBf16: product operands rounded to bf16.
 template <bool kStageW, bool kCG, bool kBf16>
 __device__ __forceinline__ void partials_item(const StepArgs& a, int e, int t, int n_tiles,
-                                              const float* x, const float* y,
-                                              const float* mask, float* scratch,
-                                              float* smem) {
+                                              int S, const float* x, const float* y,
+                                              const float* mask, float* scratch, float* smem,
+                                              uint32_t parity) {
   const int L = a.L, R = a.rows, F = a.dims[0], C = a.dims[L];
   const int row0 = t * R;
+  const int nrows = max(0, min(R, a.B - row0));
   const int P = n_params(a);
-  float* part = scratch + ((size_t)e * n_tiles + t) * (P + 2);
+  constexpr int kBSrc = kStageW ? 0 : (kCG ? 2 : 1);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
 
-  int gmax = 0;
-  for (int l = 1; l <= L; ++l) gmax = max(gmax, a.dims[l]);
-  // shared-memory carve-up (sizes in floats; the wrapper sums the same)
-  float* xs = smem;
-  float* cur = xs + R * F;
-  float* ys = cur;   cur += R * C;
-  float* ms = cur;   cur += R;
-  float* red = cur;  cur += THREADS;
-  float* ga = cur;   cur += R * gmax;
-  float* gb = cur;   cur += R * gmax;
-  float* wsm = cur;  // [weights then biases of every layer,] then activations
+  // shared-memory carve-up (floats; ops/fused_step.py::smem_bytes sums the same)
+  int ldg = 0;
+  for (int l = 1; l <= L; ++l) ldg = max(ldg, row_stride(a.dims[l]));
+  const int ldx = row_stride(F);
+  float* xs = smem + round4(2 * L);
+  float* ys = xs + R * ldx;
+  float* ms = ys + round4(R * C);
+  float* red = ms + round4(R);
+  float* ga = red + THREADS;
+  float* gb = ga + R * ldg;
+  float* wsm = gb + R * ldg;  // [weights, biases,] [W^T of layers 1..,] activations
+  float* wts = wsm;
+  if (kStageW)
+    for (int l = 0; l < L; ++l) wts += round4(a.dims[l] * a.dims[l + 1]) + round4(a.dims[l + 1]);
+  float* acts = wts;
+  if (kStageW)
+    for (int l = 1; l < L; ++l) acts += a.dims[l + 1] * row_stride(a.dims[l]);
 
-  stage_tile(a, row0, R, F, C, x, y, mask, xs, ys, ms);
-  if (kStageW) stage_weights<kCG>(a, e, wsm);
-  __syncthreads();
-
-  // layout helpers: layer l's weight and bias (shared memory when staged,
-  // else global), its input activation h_l (h_0 = xs) and the cos cache of
-  // its output
-  float* acts = kStageW ? wsm + P : wsm;  // h_1..h_{L-1}, then cos_0..cos_{L-2}
-  auto wl = [&](int l) -> const float* {
-    if constexpr (!kStageW) return a.w[l] + w_off(a, l, e);
+  auto wl = [&](int l) -> float* {  // layer l's staged weight, then its bias
     float* p = wsm;
-    for (int q = 0; q < l; ++q) p += a.dims[q] * a.dims[q + 1] + a.dims[q + 1];
+    for (int q = 0; q < l; ++q) p += round4(a.dims[q] * a.dims[q + 1]) + round4(a.dims[q + 1]);
     return p;
   };
-  auto bl = [&](int l) -> const float* {
-    if constexpr (kStageW) return wl(l) + a.dims[l] * a.dims[l + 1];
-    return a.b[l] + b_off(a, l, e);
+  auto wg = [&](int l) -> const float* { return a.w[l] + w_off(a, l, e); };
+  auto bg = [&](int l) -> const float* { return a.b[l] + b_off(a, l, e); };
+  auto wtl = [&](int l) -> float* {  // W^T of layer l >= 1: dout rows of row_stride(din)
+    float* p = wts;
+    for (int q = 1; q < l; ++q) p += a.dims[q + 1] * row_stride(a.dims[q]);
+    return p;
   };
-  // a read of a weight or bias: shared memory when staged, else global
-  auto rw = [&](const float* p) -> float {
-    if constexpr (kStageW) return *p;
-    else return ld<kCG>(p);
-  };
-  auto hl = [&](int l) -> float* {  // input of layer l
+  auto hl = [&](int l) -> float* {  // input of layer l (row stride row_stride(dims[l]))
     if (l == 0) return xs;
     float* p = acts;
-    for (int q = 1; q < l; ++q) p += R * a.dims[q];
+    for (int q = 1; q < l; ++q) p += R * row_stride(a.dims[q]);
     return p;
   };
   auto cosl = [&](int l) -> float* {  // w0 * cos of layer l's output, l < L-1
     float* p = acts;
-    for (int q = 1; q < L; ++q) p += R * a.dims[q];
-    for (int q = 0; q < l; ++q) p += R * a.dims[q + 1];
+    for (int q = 1; q < L; ++q) p += R * row_stride(a.dims[q]);
+    for (int q = 0; q < l; ++q) p += R * row_stride(a.dims[q + 1]);
     return p;
   };
 
+  // ---- staging: the previous item's generic accesses of shared memory
+  // (and, in K3/K4, the Adam phase's stores to the params) come before
+  // this item's bulk copies
+  fence_proxy_async();
+  __syncthreads();
+  const float* xsrc = x + (size_t)row0 * F;
+  const float* ysrc = y + (size_t)row0 * C;
+  const float* msrc = mask + row0;
+  const bool x_bulk = nrows > 0 && bulk_ok(xs, xsrc, (size_t)F * 4);
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      for (int l = 0; l < L; ++l) {
+        uint32_t tx = 0;
+        if (l == 0 && x_bulk) tx += (uint32_t)nrows * F * 4;
+        if (kStageW) {
+          const int din = a.dims[l], dout = a.dims[l + 1];
+          tx += bulk_bytes(wl(l), wg(l), din * dout) +
+                bulk_bytes(wl(l) + round4(din * dout), bg(l), dout);
+        }
+        if (l == L - 1) tx += bulk_bytes(ys, ysrc, nrows * C) + bulk_bytes(ms, msrc, nrows);
+        mbar_arrive_tx(&bars[l], tx);
+      }
+      if (kStageW)
+        for (int l = 0; l < L; ++l) {
+          const int din = a.dims[l], dout = a.dims[l + 1];
+          float* wd = wl(l);
+          float* bd = wd + round4(din * dout);
+          const uint32_t nw = bulk_bytes(wd, wg(l), din * dout), nb = bulk_bytes(bd, bg(l), dout);
+          if (nw) bulk_copy(wd, wg(l), nw, &bars[l]);
+          if (nb) bulk_copy(bd, bg(l), nb, &bars[l]);
+        }
+      const uint32_t ny = bulk_bytes(ys, ysrc, nrows * C), nm = bulk_bytes(ms, msrc, nrows);
+      if (ny) bulk_copy(ys, ysrc, ny, &bars[L - 1]);
+      if (nm) bulk_copy(ms, msrc, nm, &bars[L - 1]);
+    }
+    __syncwarp();
+    if (x_bulk)
+      for (int r = threadIdx.x; r < nrows; r += 32)
+        bulk_copy(xs + r * ldx, xsrc + (size_t)r * F, F * 4, &bars[0]);
+  }
+  // the cp.async route, and zeros for the rows past B
+  if (!x_bulk)
+    for (int i = threadIdx.x; i < nrows * F; i += blockDim.x) {
+      const int r = i / F;
+      cp_async4(xs + r * ldx + (i - r * F), xsrc + i);
+    }
+  for (int i = threadIdx.x; i < (R - nrows) * F; i += blockDim.x) {
+    const int r = i / F;
+    xs[(nrows + r) * ldx + (i - r * F)] = 0.0f;
+  }
+  copy_fallback(ys, ysrc, nrows * C);
+  copy_fallback(ms, msrc, nrows);
+  for (int i = nrows * C + threadIdx.x; i < R * C; i += blockDim.x) ys[i] = 0.0f;
+  for (int i = nrows + threadIdx.x; i < R; i += blockDim.x) ms[i] = 0.0f;
+  if (kStageW)
+    for (int l = 0; l < L; ++l) {
+      const int din = a.dims[l], dout = a.dims[l + 1];
+      copy_fallback(wl(l), wg(l), din * dout);
+      copy_fallback(wl(l) + round4(din * dout), bg(l), dout);
+    }
+  cp_async_wait_all();
+  __syncthreads();
+  float* part = scratch + ((size_t)e * n_tiles + t) * S;
+
   // ---- forward through the hidden layers
   for (int l = 0; l < L - 1; ++l) {
+    mbar_wait(&bars[l], parity);
     const int din = a.dims[l], dout = a.dims[l + 1];
-    const float* hin = hl(l);
-    const float* W = wl(l);
-    const float* bias = bl(l);
+    const int ldi = row_stride(din), ldo = row_stride(dout);
+    const float* W = kStageW ? wl(l) : wg(l);
+    const float* bias = kStageW ? wl(l) + round4(din * dout) : bg(l);
     float* hout = hl(l + 1);
     float* co = cosl(l);
     const float w0 = a.w0[l];
-    mm4x4<kBf16>(R, dout, din,
-          [&](int i, int k) { return hin[i * din + k]; },
-          [&](int k, int j) { return rw(W + k * dout + j); },
-          [&](int i, int j, float acc) {
-            const float u = __fmul_rn(w0, __fadd_rn(acc, rw(bias + j)));
-            float s, c;
-            sincos_poly(u, &s, &c);
-            hout[i * dout + j] = s;
-            co[i * dout + j] = __fmul_rn(w0, c);
-          });
+    mm<kBf16, false, kBSrc>(R, dout, din, hl(l), ldi, W, dout, [&](int i, int j, float acc) {
+      const float bj = kStageW ? bias[j] : ld<kCG>(bias + j);
+      const float u = __fmul_rn(w0, __fadd_rn(acc, bj));
+      float s, c;
+      sincos_poly(u, &s, &c);
+      hout[i * ldo + j] = s;
+      co[i * ldo + j] = __fmul_rn(w0, c);
+    });
     __syncthreads();
   }
 
   // ---- sigmoid head, masked squared error, d(sum se)/dz_last
   {
-    const int din = a.dims[L - 1];
-    const float* hin = hl(L - 1);
-    const float* W = wl(L - 1);
-    const float* bias = bl(L - 1);
-    mm4x4<kBf16>(R, C, din,
-          [&](int i, int k) { return hin[i * din + k]; },
-          [&](int k, int j) { return rw(W + k * C + j); },
-          [&](int i, int j, float acc) {
-            const float z = __fadd_rn(acc, rw(bias + j));
-            const float p = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z)));
-            const float diff = __fmul_rn(__fsub_rn(p, ys[i * C + j]), ms[i]);
-            gb[i * C + j] = __fmul_rn(diff, diff);
-            ga[i * C + j] = __fmul_rn(__fmul_rn(2.0f, diff),
-                                      __fmul_rn(p, __fsub_rn(1.0f, p)));
-          });
+    mbar_wait(&bars[L - 1], parity);
+    const int din = a.dims[L - 1], ldc = row_stride(C);
+    const float* W = kStageW ? wl(L - 1) : wg(L - 1);
+    const float* bias = kStageW ? wl(L - 1) + round4(din * C) : bg(L - 1);
+    mm<kBf16, false, kBSrc>(R, C, din, hl(L - 1), row_stride(din), W, C,
+                            [&](int i, int j, float acc) {
+      const float bj = kStageW ? bias[j] : ld<kCG>(bias + j);
+      const float z = __fadd_rn(acc, bj);
+      const float p = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z)));
+      const float diff = __fmul_rn(__fsub_rn(p, ys[i * C + j]), ms[i]);
+      gb[i * C + j] = __fmul_rn(diff, diff);
+      ga[i * ldc + j] = __fmul_rn(__fmul_rn(2.0f, diff), __fmul_rn(p, __fsub_rn(1.0f, p)));
+    });
+    // W^T of layers 1.. for the dH products, in 4 x 4 register blocks
+    if (kStageW)
+      for (int l = 1; l < L; ++l) {
+        const int din = a.dims[l], dout = a.dims[l + 1], ldt = row_stride(din);
+        const float* W = wl(l);
+        float* WT = wtl(l);
+        if (((din | dout) & 3) == 0) {
+          const int nk = dout >> 2;
+          for (int b = threadIdx.x; b < (din >> 2) * nk; b += blockDim.x) {
+            const int jb = b / nk, kb = b - jb * nk;
+            float4 r[4];
+#pragma unroll
+            for (int rr = 0; rr < 4; ++rr)
+              r[rr] = *reinterpret_cast<const float4*>(W + (4 * jb + rr) * dout + 4 * kb);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              *reinterpret_cast<float4*>(WT + (4 * kb + c) * ldt + 4 * jb) =
+                  make_float4(comp(r[0], c), comp(r[1], c), comp(r[2], c), comp(r[3], c));
+          }
+        } else {
+          for (int i = threadIdx.x; i < din * dout; i += blockDim.x) {
+            const int j = i / dout;
+            WT[(i - j * dout) * ldt + j] = W[i];
+          }
+        }
+      }
     __syncthreads();
     const float sse = block_sum(gb, R * C, red);
     const float cnt = block_sum(ms, R, red);
@@ -241,75 +361,66 @@ __device__ __forceinline__ void partials_item(const StepArgs& a, int e, int t, i
   int off = P;
   for (int l = L - 1; l >= 0; --l) {
     const int din = a.dims[l], dout = a.dims[l + 1];
-    const float* hin = hl(l);
-    const float* W = wl(l);
+    const int ldi = row_stride(din), ldgl = row_stride(dout);
     off -= din * dout + dout;
     float* dW = part + off;
     float* db = dW + din * dout;
     const float* gc = g;
-    mm4x4<kBf16>(din, dout, R,
-          [&](int i, int k) { return hin[k * din + i]; },
-          [&](int k, int j) { return gc[k * dout + j]; },
-          [&](int i, int j, float acc) { dW[i * dout + j] = acc; });
-    for (int j = threadIdx.x; j < dout; j += blockDim.x) {
-      float s = 0.0f;
-      for (int r = 0; r < R; ++r) s = __fadd_rn(s, gc[r * dout + j]);
-      db[j] = s;
-    }
+    mm<kBf16, true, 0>(din, dout, R, hl(l), ldi, gc, ldgl,
+                       [&](int i, int j, float acc) { dW[i * dout + j] = acc; });
+    col_sums(gc, R, dout, ldgl, db);
     if (l > 0) {
       const float* co = cosl(l - 1);
       float* gw = gn;
-      mm4x4<kBf16>(R, din, dout,
-            [&](int i, int k) { return gc[i * dout + k]; },
-            [&](int k, int j) { return rw(W + j * dout + k); },
-            [&](int i, int j, float acc) { gw[i * din + j] = __fmul_rn(acc, co[i * din + j]); });
+      auto ep = [&](int i, int j, float acc) { gw[i * ldi + j] = __fmul_rn(acc, co[i * ldi + j]); };
+      if constexpr (kStageW) {
+        mm<kBf16, false, 0>(R, din, dout, gc, ldgl, wtl(l), ldi, ep);
+      } else {
+        const float* W = wg(l);
+        mm4x4<kBf16>(R, din, dout, [&](int i, int k) { return gc[i * ldgl + k]; },
+                     [&](int k, int j) { return ld<kCG>(W + j * dout + k); }, ep);
+      }
     }
     __syncthreads();
-    float* t = g; g = gn; gn = t;
+    float* tmp = g; g = gn; gn = tmp;
   }
 }
 
-// The second pass for one parameter p of expert e: sum its partials over
-// the n_tiles items in tile order, scale by inv_scale (from the items' mask
-// counts, summed likewise) and apply Adam to it, its m and its v in place;
-// p == 0 also writes the expert's loss.  scratch: expert e's (n_tiles, P+2)
-// partials.
-template <bool kCG>
-__device__ __forceinline__ void adam_param(const StepArgs& a, int e, int p,
-                                           const float* scratch, int n_tiles, float* loss,
-                                           float lr, float c1, float c2) {
-  const int P = n_params(a);
-  const int S = P + 2;
-  const int C = a.dims[a.L];
-  const float cnt = col_sum<kCG>(scratch, n_tiles, S, P + 1);
-  const float inv_scale = __fdiv_rn(1.0f, __fmul_rn(fmaxf(cnt, 1.0f), (float)C));
-  if (p == 0) *loss = __fmul_rn(col_sum<kCG>(scratch, n_tiles, S, P), inv_scale);
-  adam_update<kCG>(a, e, p, __fmul_rn(col_sum<kCG>(scratch, n_tiles, S, p), inv_scale), lr, c1,
-                   c2);
+// initialise the item barriers (one per layer) at the start of smem
+__device__ __forceinline__ void init_bars(const StepArgs& a, float* smem) {
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+    for (int l = 0; l < a.L; ++l) mbar_init(&bars[l], 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
 }
 
 // K1/K2 pass 1: CTA (blockIdx.x, blockIdx.y) is item (expert y, tile x).
 template <bool kStageW, bool kBf16>
 __global__ void __launch_bounds__(THREADS) step_partials(StepArgs a, const float* x,
                                                           const float* y, const float* mask,
-                                                          int mask_stride, float* scratch) {
-  extern __shared__ float smem[];
+                                                          int mask_stride, float* scratch,
+                                                          int n_tiles, int S) {
+  extern __shared__ __align__(16) float smem[];
+  pdl_launch_dependents();  // pass 2 may launch now; it waits for this grid's end
+  init_bars(a, smem);
   const int e = blockIdx.y;
   const int F = a.dims[0], C = a.dims[a.L];
-  partials_item<kStageW, false, kBf16>(a, e, blockIdx.x, gridDim.x,
-                                       x + (size_t)e * a.B * F, y + (size_t)e * a.B * C,
-                                       mask + (size_t)e * mask_stride, scratch, smem);
+  partials_item<kStageW, false, kBf16>(a, e, blockIdx.x, n_tiles, S, x + (size_t)e * a.B * F,
+                                       y + (size_t)e * a.B * C, mask + (size_t)e * mask_stride,
+                                       scratch, smem, 0);
 }
 
-// K1/K2 pass 2: one thread per (parameter, expert y).
-__global__ void step_adam(StepArgs a, const float* scratch, int n_cta, float* loss,
-                          float lr, float c1, float c2) {
-  const int P = n_params(a);
+// K1/K2 pass 2: CTA (x, y) is chunk x of expert y.
+__global__ void __launch_bounds__(THREADS) step_adam(StepArgs a, const float* scratch,
+                                                     int n_tiles, int S, float* loss, float lr,
+                                                     float c1, float c2) {
+  __shared__ float red[THREADS];
+  pdl_wait();
   const int e = blockIdx.y;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  adam_param<false>(a, e, p, scratch + (size_t)e * n_cta * (P + 2), n_cta, loss + e, lr, c1,
-                    c2);
+  adam_chunk<false>(a, e, blockIdx.x, scratch + (size_t)e * n_tiles * S, n_tiles, S, loss + e,
+                    lr, c1, c2, red);
 }
 
 // Grid-wide barrier over n_blocks co-resident CTAs: bar[0] counts
@@ -340,25 +451,29 @@ template <bool kStageW, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
     multi_step(StepArgs a, int E, int k, const float* x, long long x_es, long long x_ss,
                const float* y, long long y_es, long long y_ss, const float* mask,
-               long long mask_es, long long mask_ss, float* scratch, int n_tiles,
+               long long mask_es, long long mask_ss, float* scratch, int n_tiles, int S,
                const float* sched, float* loss, unsigned int* bar) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  init_bars(a, smem);
   const int P = n_params(a);
-  const int items = E * n_tiles;
-  const int n_threads = gridDim.x * blockDim.x;
+  const int items = E * n_tiles, n_chunks = (P + ADAM_COLS - 1) / ADAM_COLS;
+  uint32_t done = 0;                    // items this CTA has run: the barriers' phase
   for (int s = 0; s < k; ++s) {
-    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    for (int it = blockIdx.x; it < items; it += gridDim.x, ++done) {
       const int e = it / n_tiles;
-      partials_item<kStageW, true, kBf16>(a, e, it - e * n_tiles, n_tiles,
+      partials_item<kStageW, true, kBf16>(a, e, it - e * n_tiles, n_tiles, S,
                                           x + s * x_ss + e * x_es, y + s * y_ss + e * y_es,
-                                          mask + s * mask_ss + e * mask_es, scratch, smem);
+                                          mask + s * mask_ss + e * mask_es, scratch, smem,
+                                          done & 1);
     }
     grid_sync(bar, gridDim.x);
     const float lr = sched[3 * s], c1 = sched[3 * s + 1], c2 = sched[3 * s + 2];
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < E * P; i += n_threads) {
-      const int e = i / P;
-      adam_param<true>(a, e, i - e * P, scratch + (size_t)e * n_tiles * (P + 2), n_tiles,
-                       loss + (size_t)s * E + e, lr, c1, c2);
+    const int n_warps = gridDim.x * (THREADS / 32);
+    for (int c = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5); c < E * n_chunks;
+         c += n_warps) {
+      const int e = c / n_chunks;
+      adam_chunk_warp<true>(a, e, c - e * n_chunks, scratch + (size_t)e * n_tiles * S, n_tiles,
+                            S, loss + (size_t)s * E + e, lr, c1, c2);
     }
     if (s + 1 < k) grid_sync(bar, gridDim.x);
   }
@@ -377,48 +492,66 @@ int lbdrn_smem_optin(void) {
   return v;
 }
 
-// One training step of E experts (E = 1: K1): partials over (n_cta, E)
-// CTAs, then the reduction + Adam.  `mask_stride`: elements between two
-// experts' masks (0: one shared (B,) mask).  Returns cudaGetLastError()
-// after the launches (0 on success).
+// One training step of E experts (E = 1: K1): partials over (n_tiles, E)
+// CTAs, then the reduction + Adam over
+// (ceil(P / 30), E) CTAs, launched as a programmatic dependent of the
+// first.  `mask_stride`: elements between two experts' masks (0: one
+// shared (B,) mask).  scratch: (E, n_tiles, S) floats.  Returns 0 on
+// success, else the CUDA error code of the refused launch or attribute.
 int lbdrn_fused_step(const StepArgs* args, int E, const float* x, const float* y,
-                     const float* mask, int mask_stride, float* scratch, int n_cta,
-                     int smem_bytes, float* loss, float lr, float c1, float c2,
-                     void* stream) {
-  using Partials = void (*)(StepArgs, const float*, const float*, const float*, int, float*);
+                     const float* mask, int mask_stride, float* scratch, int n_tiles, int S,
+                     int smem_bytes, float* loss, float lr, float c1, float c2, void* stream) {
+  using Partials =
+      void (*)(StepArgs, const float*, const float*, const float*, int, float*, int, int);
   // instantiation 2 * stage_w + mm_bf16, and its opted-in shared memory
-  static const Partials fns[4] = {step_partials<false, false>, step_partials<false, true>,
-                                  step_partials<true, false>, step_partials<true, true>};
+  static const Partials fns[4] = {
+      step_partials<false, false>, step_partials<false, true>, step_partials<true, false>,
+      step_partials<true, true>};
   static int smem_set[4] = {0, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int inst = (args->stage_w ? 2 : 0) + (args->mm_bf16 ? 1 : 0);
   const Partials fn = fns[inst];
+  cudaError_t e;
   if (smem_bytes > smem_set[inst]) {
-    cudaError_t e = cudaFuncSetAttribute((const void*)fn,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    e = cudaFuncSetAttribute((const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes);
     if (e != cudaSuccess) return (int)e;
     smem_set[inst] = smem_bytes;
   }
   int P = 0;
   for (int l = 0; l < args->L; ++l) P += args->dims[l] * args->dims[l + 1] + args->dims[l + 1];
-  const dim3 grid1(n_cta, E), grid2((P + 255) / 256, E);
-  fn<<<grid1, THREADS, smem_bytes, s>>>(*args, x, y, mask, mask_stride, scratch);
-  cudaError_t e = cudaGetLastError();
+  StepArgs a = *args;
+
+  fn<<<dim3(n_tiles, E), THREADS, smem_bytes, s>>>(a, x, y, mask, mask_stride, scratch, n_tiles,
+                                                   S);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg2 = {};
+  cfg2.gridDim = dim3((P + ADAM_COLS - 1) / ADAM_COLS, E);
+  cfg2.blockDim = dim3(THREADS);
+  cfg2.dynamicSmemBytes = 0;
+  cfg2.stream = s;
+  cfg2.attrs = pdl;
+  cfg2.numAttrs = 1;
+  const float* sc = scratch;
+  e = cudaLaunchKernelEx(&cfg2, step_adam, a, sc, n_tiles, S, loss, lr, c1, c2);
   if (e != cudaSuccess) return (int)e;
-  step_adam<<<grid2, 256, 0, s>>>(*args, scratch, n_cta, loss, lr, c1, c2);
   return (int)cudaGetLastError();
 }
 
 // k training steps of E experts (E = 1: K3) in one cooperative launch of
 // min(E * n_tiles, CTAs resident at once) CTAs.  Strides as `multi_step`
-// takes them; sched: (k, 3) device table of lr, c1, c2; loss: (k, E)
-// step-major; bar: two zeroed uint32 words.  *grid receives the CTA count.
-// Returns 0 on success, else a CUDA error code (the cooperative launch's
-// own when the grid cannot be resident).
+// takes them; scratch: (E, n_tiles, S) floats; sched: (k, 3) device table
+// of lr, c1, c2; loss: (k, E) step-major; bar: two zeroed uint32 words.
+// *grid receives the CTA count.  Returns 0 on success, else a CUDA error
+// code (the cooperative launch's own when the grid cannot be resident).
 int lbdrn_fused_multi_step(const StepArgs* args, int E, int k, const float* x,
                            long long x_es, long long x_ss, const float* y, long long y_es,
                            long long y_ss, const float* mask, long long mask_es,
-                           long long mask_ss, float* scratch, int n_tiles, int smem_bytes,
+                           long long mask_ss, float* scratch, int n_tiles, int S, int smem_bytes,
                            const float* sched, float* loss, unsigned int* bar, void* stream,
                            int* grid) {
   // instantiation 2 * stage_w + mm_bf16, and its opted-in shared memory
@@ -448,9 +581,9 @@ int lbdrn_fused_multi_step(const StepArgs* args, int E, int k, const float* x,
   if (items < n_blocks) n_blocks = items;
   *grid = n_blocks;
   StepArgs a = *args;
-  void* kargs[] = {&a,    &E,       &k,       &x,       &x_es,    &x_ss,
-                   &y,    &y_es,    &y_ss,    &mask,    &mask_es, &mask_ss,
-                   &scratch, &n_tiles, &sched, &loss,   &bar};
+  void* kargs[] = {&a,       &E,       &k,    &x,       &x_es,   &x_ss,   &y,
+                   &y_es,    &y_ss,    &mask, &mask_es, &mask_ss, &scratch, &n_tiles,
+                   &S,       &sched,   &loss, &bar};
   e = cudaLaunchCooperativeKernel(fn, dim3(n_blocks), dim3(THREADS), kargs, smem_bytes, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

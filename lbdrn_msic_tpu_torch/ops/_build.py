@@ -67,10 +67,12 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for csrc/<name>.cu (built on first call)."""
+    """The built library for csrc/<name>.cu (built on first call; two
+    sources build side by side)."""
     with _lock:
         lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(build(name))
-            _libs[name] = lib
-        return lib
+    if lib is None:
+        so = build(name)
+        with _lock:
+            lib = _libs.setdefault(name, ctypes.CDLL(so))
+    return lib

@@ -198,15 +198,42 @@ class _StepArgs(ctypes.Structure):
     )
 
 
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def row_stride(n: int) -> int:
+    """Row stride (floats) in shared memory of an activation, gradient or x
+    tile of width n: a multiple of 4 (16-byte rows for float4 reads) that is
+    not a multiple of 32, so two rows one warp instruction reads lie on
+    different banks (csrc/step_async.cuh::row_stride)."""
+    r = _r4(n)
+    return r + 4 if r % 32 == 0 else r
+
+
 def smem_bytes(dims: List[int], rows: int, stage_w: bool = True) -> int:
-    """Dynamic shared memory of the first pass (the kernel's carve-up)."""
+    """Dynamic shared memory of the first pass (the kernel's carve-up, in
+    order): one mbarrier per layer, the x tile at `row_stride(F)`, y and
+    mask rows, the block-sum buffer, two gradient buffers at the widest
+    `row_stride`; with `stage_w`, every weight and bias (each 16-byte
+    aligned) and W^T of layers 1.. (dout rows at `row_stride(din)`); then
+    the hidden activations and their w0*cos caches."""
     L = len(dims) - 1
     F, C = dims[0], dims[-1]
-    gmax = max(dims[1:])
-    P = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(L))
-    acts = 2 * rows * sum(dims[1:L])
-    return 4 * (rows * F + rows * C + rows + THREADS + 2 * rows * gmax
-                + (P if stage_w else 0) + acts)
+    ldg = max(row_stride(d) for d in dims[1:])
+    n = _r4(2 * L) + rows * row_stride(F) + _r4(rows * C) + _r4(rows) + THREADS
+    n += 2 * rows * ldg
+    if stage_w:
+        n += sum(_r4(dims[l] * dims[l + 1]) + _r4(dims[l + 1]) for l in range(L))
+        n += sum(dims[l + 1] * row_stride(dims[l]) for l in range(1, L))
+    n += 2 * rows * sum(row_stride(d) for d in dims[1:L])
+    return 4 * n
+
+
+def scratch_stride(P: int) -> int:
+    """Floats per partial row (P gradients, the SSE, the mask count), padded
+    to 16 bytes."""
+    return _r4(P + 2)
 
 
 def cta_layout(dims: List[int], smem_limit: int) -> Tuple[int, bool]:
@@ -235,33 +262,37 @@ def _kernel_lib():
         from lbdrn_msic_tpu_torch.ops._build import load
 
         lib = load("fused_step")
+        i64, ptr, i32 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
         lib.lbdrn_smem_optin.argtypes = []
-        lib.lbdrn_smem_optin.restype = ctypes.c_int
-        lib.lbdrn_fused_step.restype = ctypes.c_int
+        lib.lbdrn_smem_optin.restype = i32
+        lib.lbdrn_fused_step.restype = i32
         lib.lbdrn_fused_step.argtypes = [
-            ctypes.POINTER(_StepArgs), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ctypes.POINTER(_StepArgs), i32, ptr, ptr, ptr, i32, ptr, i32, i32, i32, ptr,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, ptr,
         ]
-        i64, ptr = ctypes.c_int64, ctypes.c_void_p
-        lib.lbdrn_fused_multi_step.restype = ctypes.c_int
+        lib.lbdrn_fused_multi_step.restype = i32
         lib.lbdrn_fused_multi_step.argtypes = [
-            ctypes.POINTER(_StepArgs), ctypes.c_int, ctypes.c_int,
-            ptr, i64, i64, ptr, i64, i64, ptr, i64, i64,
-            ptr, ctypes.c_int, ctypes.c_int, ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(_StepArgs), i32, i32, ptr, i64, i64, ptr, i64, i64, ptr, i64, i64,
+            ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_int),
         ]
         _smem_optin = lib.lbdrn_smem_optin()
         _lib = lib
     return _lib
 
 
-def _check(t: torch.Tensor, shape, what: str, device: torch.device):
+def _check(t: torch.Tensor, shape, what, device: torch.device):
+    """Raise unless t is a contiguous float32 tensor of `shape` on `device`.
+    `what` names it: a string, or a tuple of parts joined only to raise (the
+    launchers check every leaf at every step)."""
+    if (t.device == device and t.dtype == torch.float32 and t.shape == shape
+            and t.is_contiguous()):
+        return
+    what = what if isinstance(what, str) else " ".join(map(str, what))
     if t.device != device or t.dtype != torch.float32:
         raise ValueError(f"{what}: expected float32 on {device}, got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what}: must be contiguous")
+    raise ValueError(f"{what}: must be contiguous")
 
 
 def _step_args(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
@@ -280,8 +311,8 @@ def _step_args(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
         raise ValueError(f"head width {dims[-1]} != dim_out {dim_out}")
     for l in range(L):
         for st, nm in ((params, "param"), (m_state, "m"), (v_state, "v")):
-            _check(st.weights[l], (*lead, dims[l], dims[l + 1]), f"{nm} weight {l}", dev)
-            _check(st.biases[l], (*lead, dims[l + 1]), f"{nm} bias {l}", dev)
+            _check(st.weights[l], (*lead, dims[l], dims[l + 1]), (nm, "weight", l), dev)
+            _check(st.biases[l], (*lead, dims[l + 1]), (nm, "bias", l), dev)
 
     leaves = params.leaves() + m_state.leaves() + v_state.leaves()
     key = (tuple(t.data_ptr() for t in leaves), B, tuple(dims), mspec, bf16)
@@ -338,11 +369,12 @@ def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
         _check(loss_out, lead, "loss_out", dev)
 
     n_exp = 1 if E is None else E
-    scratch = torch.empty((n_exp, n_cta, P + 2), dtype=torch.float32, device=dev)
+    S = scratch_stride(P)
+    scratch = torch.empty((n_exp, n_cta, S), dtype=torch.float32, device=dev)
     c1, c2 = corrections or bias_corrections(step)
     rc = lib.lbdrn_fused_step(
         ctypes.byref(args), n_exp, x.data_ptr(), y.data_ptr(), mask.data_ptr(), mask_stride,
-        scratch.data_ptr(), n_cta, smem, loss_out.data_ptr(),
+        scratch.data_ptr(), n_cta, S, smem, loss_out.data_ptr(),
         float(np.float32(lr)), c1, c2, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -384,7 +416,8 @@ def _launch_multi(params: SirenParams, m_state: SirenParams, v_state: SirenParam
         table[s] = (np.float32(lr), *bias_corrections(step0 + s))
     sched = host.to(dev, non_blocking=True)
     n_exp = 1 if E is None else E
-    scratch = torch.empty((n_exp, n_tiles, P + 2), dtype=torch.float32, device=dev)
+    S = scratch_stride(P)
+    scratch = torch.empty((n_exp, n_tiles, S), dtype=torch.float32, device=dev)
     barrier = torch.zeros(2, dtype=torch.int32, device=dev)
     grid = ctypes.c_int(0)
     rc = lib.lbdrn_fused_multi_step(
@@ -392,7 +425,7 @@ def _launch_multi(params: SirenParams, m_state: SirenParams, v_state: SirenParam
         X.data_ptr(), B * F, n_exp * B * F,
         Y.data_ptr(), B * dim_out, n_exp * B * dim_out,
         masks.data_ptr(), 0, B,
-        scratch.data_ptr(), n_tiles, smem, sched.data_ptr(), loss_out.data_ptr(),
+        scratch.data_ptr(), n_tiles, S, smem, sched.data_ptr(), loss_out.data_ptr(),
         barrier.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(grid),
     )
     if rc != 0:

@@ -169,10 +169,16 @@ def variant_step_plain(params: SirenParams, m_state: SirenParams, v_state: Siren
 
 
 def smem_bytes(dims, rows: int, stage_wt: bool) -> int:
-    """Dynamic shared memory of a probe's first pass: K1's with the weights
-    staged, plus W^T of layers 1.. when staged (the kernel's carve-up)."""
-    wt = sum(dims[l] * dims[l + 1] for l in range(1, len(dims) - 1))
-    return fs.smem_bytes(dims, rows, True) + (4 * wt if stage_wt else 0)
+    """Dynamic shared memory of a probe's first pass (csrc/kernel_prof.cu's
+    carve-up, packed without padding): x, y and mask tiles, the block-sum
+    buffer, two gradient buffers of rows x the widest layer, every weight
+    and bias, W^T of layers 1.. when staged, the hidden activations and
+    their w0*cos caches."""
+    L = len(dims) - 1
+    P = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(L))
+    wt = sum(dims[l] * dims[l + 1] for l in range(1, L))
+    return 4 * (rows * (dims[0] + dims[-1] + 1) + fs.THREADS + 2 * rows * max(dims[1:]) + P
+                + (wt if stage_wt else 0) + 2 * rows * sum(dims[1:L]))
 
 
 def cta_rows(variant: str) -> int:

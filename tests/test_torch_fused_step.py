@@ -240,22 +240,64 @@ def test_bias_corrections_and_loss_out():
 H100_SMEM_OPTIN = 232448
 
 
+def _carve(dims, rows, staged):
+    """The first pass's shared-memory regions in order, (name, floats),
+    written out from the kernel's carve-up (csrc/fused_step.cu)."""
+    L = len(dims) - 1
+    F, C = dims[0], dims[-1]
+    r4 = lambda n: -(-n // 4) * 4
+    ldg = max(fs.row_stride(d) for d in dims[1:])
+    regions = [("mbarriers", r4(2 * L)), ("x", rows * fs.row_stride(F)), ("y", r4(rows * C)),
+               ("mask", r4(rows)), ("block_sum", fs.THREADS), ("g_a", rows * ldg),
+               ("g_b", rows * ldg)]
+    if staged:
+        for l in range(L):
+            regions += [(f"w{l}", r4(dims[l] * dims[l + 1])), (f"b{l}", r4(dims[l + 1]))]
+        regions += [(f"wt{l}", dims[l + 1] * fs.row_stride(dims[l])) for l in range(1, L)]
+    regions += [(f"h{l}", rows * fs.row_stride(dims[l])) for l in range(1, L)]
+    regions += [(f"cos{l}", rows * fs.row_stride(dims[l + 1])) for l in range(L - 1)]
+    return regions
+
+
 @pytest.mark.parametrize(
     "bc,nl,C,rows,staged",
-    [(64, 2, 4, 64, True), (32, 1, 2, 64, True), (128, 3, 8, 32, False)],
+    [(64, 2, 4, 64, True), (32, 1, 2, 64, True), (128, 3, 8, 32, False),
+     (64, 2, 3, 64, True), (128, 2, 3, 32, False)],
 )
 def test_cta_layout(bc, nl, C, rows, staged):
-    """Rows per CTA and weight staging as the wrapper picks them on an
-    H100: the bench widths stage everything at 64 rows; bc=128, nl=3 has
-    200 KB of weights, which leave no room for even 8 rows, so the kernel
-    reads them from global memory."""
+    """Rows per CTA, weight staging and the shared-memory carve-up as the
+    wrapper picks them on an H100.  The bench widths stage x, the weights
+    and W^T at 64 rows (205 KB); bc=128, nl=3 has 200 KB of weights, which
+    leave no room for even 8 rows, so the kernel reads them from global
+    memory.  Every region starts on 16 bytes (float4 reads, bulk-copy
+    targets), the mbarriers first; the row strides of x and activations are
+    multiples of 4 but not of 32; a head width C = 3 (12-byte rows) keeps
+    the same layout, its y rows and bias copied by cp.async."""
     dims = [128] + [bc] * nl + [C]
+    L = nl + 1
     assert fs.cta_layout(dims, H100_SMEM_OPTIN) == (rows, staged)
+    regions = _carve(dims, rows, staged)
+    assert fs.smem_bytes(dims, rows, staged) == 4 * sum(n for _, n in regions)
     assert fs.smem_bytes(dims, rows, staged) <= H100_SMEM_OPTIN
+    assert regions[0] == ("mbarriers", -(-2 * L // 4) * 4)  # 8 bytes each, first
+    assert all(n % 4 == 0 for _, n in regions)  # so every region is 16-byte aligned
+    names = [nm for nm, _ in regions]
+    assert ("wt1" in names) == staged and "wt0" not in names
+    for d in dims:
+        ld = fs.row_stride(d)
+        assert ld >= d and ld % 4 == 0 and ld % 32 != 0
     if rows < fs.ROWS:
         assert fs.smem_bytes(dims, 2 * rows, staged) > H100_SMEM_OPTIN
+    if staged:  # W^T: dout rows of row_stride(din) for every layer past the first
+        assert dict(regions)["wt1"] == dims[2] * fs.row_stride(dims[1])
     with pytest.raises(ValueError):
         fs.cta_layout(dims, fs.smem_bytes(dims, 8, False) - 4)
+
+
+@pytest.mark.parametrize("n,ld", [(4, 4), (8, 8), (3, 4), (64, 68), (128, 132), (100, 100),
+                                  (96, 100), (2, 4)])
+def test_row_stride(n, ld):
+    assert fs.row_stride(n) == ld
 
 
 @pytest.mark.cuda

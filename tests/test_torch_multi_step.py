@@ -313,6 +313,30 @@ def test_fit_rate_experts_multi_k_matches_jax():
     _assert_same_fit(got, run(0))
 
 
+@pytest.mark.parametrize("P", [1, 2, 12676, 12677, 50568])
+def test_scratch_stride(P):
+    """A partial row holds P gradients, the SSE and the mask count, padded
+    to 16 bytes, so every row of the (E, tiles, S) scratch that K1-K4 share
+    starts 16-byte aligned."""
+    S = fs.scratch_stride(P)
+    assert S >= P + 2 and S % 4 == 0 and S - (P + 2) < 4
+
+
+def test_launcher_checks():
+    """The launchers' leaf check passes a contiguous f32 tensor of the shape
+    and names the leaf (a tuple of parts, joined only then) when it
+    refuses one."""
+    dev = torch.device("cpu")
+    w = torch.zeros(3, 4)
+    fs._check(w, (3, 4), ("m", "weight", 1), dev)
+    fs._check(w, torch.Size([3, 4]), "x", dev)
+    for bad, shape, msg in ((w, (4, 3), "m weight 1: expected shape"),
+                            (w.double(), (3, 4), "m weight 1: expected float32"),
+                            (w.t(), (4, 3), "m weight 1: must be contiguous")):
+        with pytest.raises(ValueError, match=msg):
+            fs._check(bad, shape, ("m", "weight", 1), dev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("E,bc,nl,dim_out,B,k", [(None, 64, 2, 4, 8192, 16),
                                                  (None, 128, 3, 8, 1000, 4),
