@@ -3,8 +3,9 @@
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
-                                       # one encode, one sweep and the
-                                       # fit at multi_k 0 and 16
+                                       # one encode, one sweep, the fit at
+                                       # multi_k 0 and 16, and one epoch of
+                                       # the GF-2 "full" / "banded" encodes
 
 Phases, one JSON line each (every phase asserts; nothing is caught):
   env      card name and power limit, TF32 switched off
@@ -56,6 +57,18 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            held as one step is) and within the JAX bf16 tier (2e-2); then the counterpart of scripts/profiling/mm_ab.py: `fit` at the
            bench config with mm_dtype None and "bfloat16", one warm and two
            timed rounds each, interleaved: seconds and best MSE
+  staging  training above the feature-cache budget, one run each: (a) `fit`
+           at the bench scene (e=2) in "full" and "banded" staging, bit for
+           bit "cached" at g=8, and "gather" bit for bit "cached" at g=1;
+           (b) a GF-2-sized scene (7605x7815x4, 12-bit, seed 42, e=10):
+           `encode_image` at K=5 must pick "full" and at K=3 "banded", each
+           launching K1 exactly 10 x 7256 = 72560 times (K2 never), decoded
+           with MSBs exact; (c) its rate sweep, K in {3, 4, 5, 6}: "banded",
+           one group, exactly 72560 K2 launches (K1 never), every point
+           decoded with MSBs exact, K=3 byte-identical to (b)'s K=3 stream,
+           K=5 within 0.1 dB of (b)'s "full" K=5.  Seconds, staged bytes
+           against `_staging_bytes`' estimate, peak device memory, sha256;
+           with --profile, one epoch of each GF-2 encode under the profiler
   kernel_prof  K5, the nine step-anatomy probes of
            profiling/kernel_prof.py: each variant's kernel against its plain
            version from the same state, one step and a 5-step chain, at a
@@ -85,6 +98,8 @@ import time
 # thread-block cluster size and f32 product routine of csrc/fused_step.cu's
 # first pass, fixed in the source (PERF.md has the times of the others)
 FUSED_STEP_DESIGN = {"cluster": 1, "product": "ffma"}
+# the device functions of K1-K4 (csrc/fused_step.cu), by kernel name
+FUSED_STEP_KERNELS = ("step_partials", "step_adam", "multi_step")
 
 
 def emit(obj) -> None:
@@ -570,11 +585,6 @@ def phase_multi_k(card: str, profile: bool, k3, k4):
         return fit_rate_experts(dev_img, Ks, tile_generator(train.seed, 0), cfg.features,
                                 cfg.model, train, H, W, C, tap_dtypes=dtypes, multi_k=k)
 
-    def same(a, b):
-        return (torch.equal(a.step_losses, b.step_losses) and a.best_epoch == b.best_epoch
-                and a.best_mse == b.best_mse
-                and all(torch.equal(x, y) for x, y in zip(a.params.leaves(), b.params.leaves())))
-
     out = {}
     for what, run, ks, single, multi in (("fit", fit_k, (0, 4, 16, 64), 0, 2),
                                          ("sweep", sweep_k, (0, 8, 32), 1, 3)):
@@ -597,7 +607,7 @@ def phase_multi_k(card: str, profile: bool, k3, k4):
                     want[single] = train.epochs * steps
                 assert counts == want, (what, k, counts, want)
                 ref = ref or res
-                assert same(res, ref), (what, k, "chunked fit differs from multi_k=0")
+                assert same_fit(res, ref), (what, k, "chunked fit differs from multi_k=0")
                 if rnd:
                     rows[k]["seconds"].append(secs)
                 rows[k]["launches"] = counts[multi] if k else counts[single]
@@ -972,9 +982,12 @@ def phase_profile(what: str, run, secs):
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     busy = busy_seconds(prof)
+    step_us = sum(r[0] for r in rows if any(k in r[1] for k in FUSED_STEP_KERNELS))
     emit({"phase": "profile", "of": what, "wall_s_profiled": wall,
           "wall_s_unprofiled": min(secs), "device_busy_s": busy,
           "device_kernel_time_sum_s": sum(r[0] for r in rows) / 1e6,
+          "fused_step_kernels_device_s": step_us / 1e6,
+          "other_device_s": (sum(r[0] for r in rows) - step_us) / 1e6,
           "device_busy_share": busy / wall,
           "top": [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
                   for us, k, n in rows[:12]]})
@@ -1011,6 +1024,7 @@ def phase_codec(profile: bool, kernel):
         streams.append(stream)
     assert launches == [n_steps] * 3, (launches, n_steps)
     kernel["launches"] = launches[0]
+    kernel["launches_by_path"] = {"encode": launches[0]}
     emit({"phase": "encode", "shape": [4, H, W], "warm_s": warm_s, "seconds": secs,
           "mpx_s": [mpx / s for s in secs], "phases": stats.phases,
           "bpsp": stats.bpsp, "best_epoch": stats.tiles[0].best_epoch,
@@ -1084,6 +1098,7 @@ def phase_sweep(profile: bool, kernel):
         assert [s for s, _ in res] == warm, "same seed gave different sweep streams"
     assert launches == [n_steps] * 3, (launches, n_steps)
     kernel["launches"] = launches[0]
+    kernel["launches_by_path"] = {"sweep": launches[0]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     points = []
@@ -1110,11 +1125,173 @@ def phase_sweep(profile: bool, kernel):
         phase_profile("sweep", lambda: encode_rate_points(img, cfgs), secs)
 
 
+def same_fit(a, b) -> bool:
+    """Two fits bit for bit: step losses, best MSE and epoch, best params."""
+    import torch
+
+    return (torch.equal(a.step_losses, b.step_losses) and a.best_epoch == b.best_epoch
+            and a.best_mse == b.best_mse
+            and all(torch.equal(x, y) for x, y in zip(a.params.leaves(), b.params.leaves())))
+
+
+def counted_run(fn):
+    """fn() with the K1 / K2 launch counts zeroed just before it and read
+    just after, and the device's peak memory over it: (result, seconds,
+    [K1, K2] launches, peak GB)."""
+    import torch
+
+    from lbdrn_msic_tpu_torch.ops.fused_step import fused_expert_step, fused_train_step
+
+    fused_train_step.launches = fused_expert_step.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.time() - t0, [fused_train_step.launches, fused_expert_step.launches],
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_staging(profile: bool, k1, k2):
+    """Training above the feature-cache budget: (a) `fit` in each forced
+    mode at the bench scene against "cached"; (b) GF-2-sized encodes that
+    `pick_staging` routes to "full" (K=5) and "banded" (K=3), decoded; (c)
+    the GF-2 rate sweep, banded.  One run each."""
+    import numpy as np
+    import torch
+
+    from lbdrn_msic_tpu_torch.codec import (
+        _prepare_tile, _staging_bytes, _tap_itemsize, decode_stream, encode_image,
+        encode_rate_points, plan_rate_points, tile_generator)
+    from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
+    from lbdrn_msic_tpu_torch.eval.metrics import psnr
+    from lbdrn_msic_tpu_torch.features.engine import lsb_scale
+    from lbdrn_msic_tpu_torch.train.loop import _batch_geometry, fit
+    from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+    from lbdrn_msic_tpu_torch.utils.transfer import put_image
+
+    t_phase = time.time()
+    # (a) the bench scene, e=2, each forced mode against "cached" at its
+    # granule: W % 8 == 0, so "full" and "banded" see "cached"'s granules
+    H = W = 2048
+    C, K = 4, 5
+    img = synth_scene(H, W, channels=C, effective_bits=12, seed=42)
+    plane, scale, labels = _prepare_tile(put_image(img, torch.device("cuda")), K, 2)
+    ls = float(np.float32(lsb_scale(K)))
+    forced = []
+    for g, modes in ((8, ("cached", "full", "banded")), (1, ("cached", "gather"))):
+        train = TrainSpec(sample_granule=g, epochs=2)
+        cfg = CodecConfig(K=K, base_codec="lpc", train=train)
+        fits = {}
+        for st in modes:
+            res, secs, launches, peak = counted_run(
+                lambda: fit(plane, scale, labels, ls, tile_generator(train.seed, 0), cfg.features,
+                            cfg.model, train, H, W, C, staging=st))
+            want = train.epochs * _batch_geometry(train, H, W, st).steps
+            assert launches == [want, 0], (st, g, launches, want)
+            fits[st] = res
+            if st != "cached":
+                assert same_fit(res, fits["cached"]), (st, g, "differs from cached")
+            forced.append({"staging": st, "sample_granule": g, "seconds": secs,
+                           "launches_k1": launches[0], "staged_bytes": res.staged_bytes,
+                           "peak_device_gb": peak, "best_mse": res.best_mse,
+                           "best_epoch": res.best_epoch,
+                           "bit_identical_to_cached": st != "cached" or None})
+    del plane, scale, labels, fits
+    a_s = time.time() - t_phase
+
+    # (b) a GF-2-sized scene (reference DLPR_nll_results.py:89-103:
+    # 7605x7815x4, 12-bit) at the bench config, e=10: above the cache budget
+    t0 = time.time()
+    H, W = 7605, 7815
+    big = synth_scene(H, W, channels=C, effective_bits=12, seed=42, fast=True)
+    synth_s = time.time() - t0
+    train = TrainSpec(sample_granule=8, epochs=10)
+    mx = int(big.max())
+
+    def decoded(stream, K_):
+        (rec, _), secs, launches, peak = counted_run(lambda: decode_stream(stream))
+        assert rec.shape == big.shape and np.array_equal(rec >> K_, big >> K_), K_
+        assert launches == [0, 0]
+        return {"psnr_db": psnr(big, rec), "decode_s": secs, "decode_peak_device_gb": peak}
+
+    def estimate(cfg, staging):
+        full, banded = _staging_bytes(H, W, C, cfg.features, 8,
+                                      _tap_itemsize(mx >> cfg.K, cfg.features.relative),
+                                      _tap_itemsize(mx >> cfg.K, False))
+        return full if staging == "full" else banded
+
+    encodes, streams = [], {}
+    for K_, want in ((5, "full"), (3, "banded")):
+        cfg = CodecConfig(K=K_, base_codec="lpc", train=train)
+        (stream, stats), secs, launches, peak = counted_run(lambda: encode_image(big, cfg))
+        tile = stats.tiles[0]
+        steps = _batch_geometry(train, H, W, want).steps
+        assert tile.staging == want and steps == 7256, (K_, tile.staging, steps)
+        assert launches == [train.epochs * steps, 0], (K_, launches)
+        streams[K_] = stream
+        row = {"K": K_, "staging": tile.staging, "seconds": secs, "phases": stats.phases,
+               "launches_k1": launches[0], "launches_k2": launches[1],
+               "staged_bytes": tile.staged_bytes, "staged_bytes_estimate": estimate(cfg, want),
+               "peak_device_gb": peak, "best_epoch": tile.best_epoch,
+               "best_mse": tile.best_mse, "bpsp": stats.bpsp,
+               "sha256": hashlib.sha256(stream).hexdigest()}
+        row.update(decoded(stream, K_))
+        encodes.append(row)
+        k1["launches_by_path"][f"gf2_encode_{want}"] = launches[0]
+    b_s = time.time() - t0
+
+    # (c) the GF-2 rate sweep: every expert's banded row taps in one group
+    t0 = time.time()
+    Ks = (3, 4, 5, 6)
+    cfgs = [CodecConfig(K=k, base_codec="lpc", train=train) for k in Ks]
+    staging, dtypes, groups, per_expert = plan_rate_points(big, cfgs)
+    assert staging == "banded" and groups == [[0, 1, 2, 3]], (staging, groups)
+    res, secs, launches, peak = counted_run(lambda: encode_rate_points(big, cfgs))
+    assert launches == [0, train.epochs * 7256], launches
+    k2["launches_by_path"]["gf2_sweep_banded"] = launches[1]
+    points = []
+    for cfg, (stream, stats) in zip(cfgs, res):
+        assert stats.tiles[0].staging == "banded"
+        pt = {"K": cfg.K, "bpsp": stats.bpsp, "best_epoch": stats.tiles[0].best_epoch,
+              "best_mse": stats.tiles[0].best_mse, "sha256": hashlib.sha256(stream).hexdigest()}
+        pt.update(decoded(stream, cfg.K))
+        points.append(pt)
+    by_k = {p["K"]: p for p in points}
+    enc = {r["K"]: r for r in encodes}
+    # K=3: both banded, so the same network and bytes; K=5: "full" and
+    # "banded" draw different granule grids (W % 8 != 0), so RD only
+    assert res[Ks.index(3)][0] == streams[3], "sweep K=3 differs from the banded encode"
+    assert abs(by_k[5]["psnr_db"] - enc[5]["psnr_db"]) < 0.1, (by_k[5], enc[5])
+    sweep = {"Ks": list(Ks), "staging": staging,
+             "raw_dtypes": [str(d).replace("torch.", "") for d in dtypes],
+             "seconds": secs, "phases": res[0][1].phases, "launches_k1": launches[0],
+             "launches_k2": launches[1], "staged_bytes": res[0][1].tiles[0].staged_bytes,
+             "staged_bytes_estimate": sum(per_expert), "peak_device_gb": peak,
+             "k3_identical_to_banded_encode": True,
+             "k5_psnr_vs_full_encode_db": by_k[5]["psnr_db"] - enc[5]["psnr_db"],
+             "points": points}
+    c_s = time.time() - t0
+    emit({"phase": "staging", "bench_forced_modes": forced,
+          "gf2": {"shape": [C, H, W], "synth": "synth_scene(fast=True), seed 42",
+                  "synth_s": synth_s, "epochs": train.epochs, "steps_per_epoch": 7256,
+                  "encodes": encodes, "sweep": sweep},
+          "phase_seconds": {"a_forced_modes": a_s, "b_gf2_encodes": b_s, "c_gf2_sweep": c_s,
+                            "total": time.time() - t_phase}})
+
+    if profile:  # one epoch of the GF-2 fit in each mode: staging, batch assembly, K1
+        for K_, want in ((5, "full"), (3, "banded")):
+            cfg = CodecConfig(K=K_, base_codec="lpc", train=TrainSpec(sample_granule=8, epochs=1))
+            secs = counted_run(lambda: encode_image(big, cfg))[1]
+            phase_profile(f"gf2 encode e=1 {want}", lambda: encode_image(big, cfg), [secs])
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels",), default=None)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one encode, one sweep and two fits with torch.profiler")
+                    help="also trace one encode, one sweep, two fits and two GF-2 epochs "
+                         "with torch.profiler")
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1140,7 +1317,7 @@ def main():
         return time.time() - t0
 
     def native():
-        assert _native.load() is not None, "native codec library did not build"
+        assert _native.load() is not None, f"native codec library did not load: {_native.load_error}"
 
     # nvcc (one per kernel source) and g++ (the host codecs) side by side
     sources = ("fused_step", "kernel_prof")
@@ -1163,6 +1340,7 @@ def main():
         phase_codec(args.profile, k1)
         phase_sweep(args.profile, k2)
         phase_multi_k(card, args.profile, k3, k4)
+        phase_staging(args.profile, k1, k2)
     emit({"kernels": [k1, k2, k3, k4, *k5]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

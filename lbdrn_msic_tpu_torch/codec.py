@@ -14,6 +14,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import time
+import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -26,6 +27,7 @@ from lbdrn_msic_tpu_torch.core.config import CodecConfig
 from lbdrn_msic_tpu_torch.features.engine import (
     lsb_scale,
     pad_plane,
+    row_taps_dtype,
     split_msb_lsb,
     tap_matrix_dtype,
 )
@@ -56,6 +58,8 @@ class TileStats:
     best_epoch: int
     train_time: float
     base_time: float
+    staging: str = "cached"  # how the training batches were built
+    staged_bytes: int = 0  # their staging buffers' device bytes (a sweep: its group's)
 
 
 @dataclasses.dataclass
@@ -113,27 +117,43 @@ def _tap_itemsize(max_value: int, relative: bool) -> int:
     return 1 if max_value <= 255 else 2
 
 
-def pick_staging(H, W, C, max_msb, fspec, tspec) -> str:
-    """The JAX package's decision rule for how training batches are built:
-    the f32 feature cache when it fits the budget, else the full integer
-    tap matrix, else banded row taps, else scalar gathers.  Only "cached"
-    is ported; the caller raises for the others."""
+def _warn_gather_fallback(H, W, C):
+    """A tile above every staged layout's budget trains by scalar gathers
+    (far slower): `pick_staging` says so instead of crawling silently."""
+    warnings.warn(
+        f"tile {H}x{W}x{C} exceeds the staging budget even banded; "
+        f"falling back to scalar gathers (~25x slower training). "
+        f"Use split_ratio to tile the image (e.g. -sr 2).",
+        RuntimeWarning,
+        stacklevel=3,
+    )
+
+
+def pick_staging(H, W, C, max_msb, fspec, tspec):
+    """The JAX package's rule for how training batches are built
+    (train/loop.py::fit): the f32 feature cache when it fits the budget,
+    else the full integer tap matrix, else banded row taps, else scalar
+    gathers (with a RuntimeWarning).  Returns (staging, dtype): float32
+    for "cached", the tap matrix's dtype for "full" and "gather", the raw
+    row taps' for "banded"."""
     g = tspec.sample_granule
     if not fspec.use_colors:
         if fspec.use_coords and _cached_bytes(H, W, C, fspec, g) <= STAGE_BUDGET_BYTES:
-            return "cached"
-        return "gather"
+            return "cached", torch.float32
+        return "gather", torch.int16
     if _cached_bytes(H, W, C, fspec, g) <= STAGE_BUDGET_BYTES:
-        return "cached"
+        return "cached", torch.float32
+    tap_dt = tap_matrix_dtype(max_msb, fspec.relative)
     full, banded = _staging_bytes(
         H, W, C, fspec, g, _tap_itemsize(max_msb, fspec.relative),
         _tap_itemsize(max_msb, False),
     )
     if full <= STAGE_BUDGET_BYTES:
-        return "full"
+        return "full", tap_dt
     if banded <= STAGE_BUDGET_BYTES:
-        return "banded"
-    return "gather"
+        return "banded", row_taps_dtype(max_msb)
+    _warn_gather_fallback(H, W, C)
+    return "gather", tap_dt
 
 
 def _prepare_tile(img: torch.Tensor, K: int, D: int):
@@ -162,19 +182,14 @@ def _train_tile(tile: np.ndarray, cfg: CodecConfig, generator: torch.Generator,
     C, H, W = tile.shape
     fspec = cfg.features
     max_msb = int(tile.max()) >> cfg.K
-    staging = pick_staging(H, W, C, max_msb, fspec, cfg.train)
-    if staging != "cached":
-        raise NotImplementedError(
-            f"tile {H}x{W}x{C} needs {staging!r} staging, not ported yet "
-            "(ROADMAP: other staging modes)"
-        )
+    staging, tap_dtype = pick_staging(H, W, C, max_msb, fspec, cfg.train)
     dev = put_image(tile, device)
     plane, plane_scale, labels = _prepare_tile(dev, cfg.K, fspec.D)
     label_scale = float(np.float32(lsb_scale(cfg.K)))
     result = fit(
         plane, plane_scale, labels, label_scale, generator,
         fspec, cfg.model, cfg.train, H, W, C,
-        use_fused=use_fused, device=device,
+        staging=staging, tap_dtype=tap_dtype, use_fused=use_fused, device=device,
     )
 
     def flat_fn():
@@ -233,6 +248,8 @@ def encode_image(
                 best_epoch=result.best_epoch,
                 train_time=t2 - t1,
                 base_time=t3 - t2,
+                staging=result.staging,
+                staged_bytes=result.staged_bytes,
             ))
     header = header_from_config(
         cfg, W, H,
@@ -275,8 +292,10 @@ def plan_rate_points(img: np.ndarray, cfgs: List[CodecConfig]):
     """The JAX package's staging plan for a rate sweep of compatible
     configs: (staging, tap dtypes, groups of config indices, staged bytes
     per expert).  "full" when every expert's tap matrix fits the budget
-    alone, else "banded" when its row taps do, else "gather"; experts are
-    chunked into groups whose staged bytes fit the budget together."""
+    alone (dtypes: the tap matrices'), else "banded" when its row taps do
+    (the raw row taps'), else "gather", which the sweep leaves to
+    `encode_image` one config at a time; experts are chunked into groups
+    whose staged bytes fit the budget together."""
     C, H, W = img.shape
     fspec = cfgs[0].features
     g = cfgs[0].train.sample_granule
@@ -300,7 +319,8 @@ def plan_rate_points(img: np.ndarray, cfgs: List[CodecConfig]):
             acc = 0
         groups[-1].append(i)
         acc += b
-    dtypes = [tap_matrix_dtype(max_img >> c.K, fspec.relative) for c in cfgs]
+    dtypes = [row_taps_dtype(max_img >> c.K) if staging == "banded"
+              else tap_matrix_dtype(max_img >> c.K, fspec.relative) for c in cfgs]
     return staging, dtypes, groups, per_expert
 
 
@@ -319,9 +339,10 @@ def encode_rate_points(
     point; the host base codecs of every K run in worker threads while the
     device trains.  Every expert takes `encode_image`'s draws at the same
     seed (`tile_generator(seed, 0)`), so each stream is byte-identical to
-    `encode_image(img, cfg, seed)`.  Configs that differ beyond K are
-    encoded one by one with `encode_image` (the same bytes).  Returns one
-    (stream, stats) per config, in order.
+    `encode_image(img, cfg, seed)`.  Configs that differ beyond K, and
+    sweeps whose banded row taps exceed the budget (`plan_rate_points`:
+    "gather"), are encoded one by one with `encode_image` (the same bytes).
+    Returns one (stream, stats) per config, in order.
     """
     device = resolve_device(device)
     if img.ndim == 2:
@@ -333,11 +354,8 @@ def encode_rate_points(
     fspec = cfg0.features
     seed = cfg0.train.seed if seed is None else seed
     staging, dtypes, groups, _ = plan_rate_points(img, cfgs)
-    if staging != "full":
-        raise NotImplementedError(
-            f"image {C}x{H}x{W} needs {staging!r} staging for a rate sweep, "
-            "not ported yet (ROADMAP: banded staging)"
-        )
+    if staging == "gather":
+        return [encode_image(img, c, seed, use_fused, device) for c in cfgs]
 
     results: List[Optional[tuple[bytes, EncodeStats]]] = [None] * len(cfgs)
     dev_img = put_image(img, device)  # one copy for every rate point
@@ -355,7 +373,7 @@ def encode_rate_points(
                     dev_img, [cfgs[i].K for i in grp], tile_generator(seed, 0),
                     fspec, cfg0.model, cfg0.train, H, W, C,
                     tap_dtypes=[dtypes[i] for i in grp], use_fused=use_fused,
-                    device=device,
+                    staging=staging, device=device,
                 )
             with timer.phase("train_wait"):  # blocks on the device result
                 flats = [flatten_params(unstack_params(result.params, e),
@@ -374,6 +392,7 @@ def encode_rate_points(
                         nn_bytes=len(nn), base_bytes=len(base),
                         best_mse=result.best_mse[e], best_epoch=result.best_epoch[e],
                         train_time=t_train / len(grp), base_time=0.0,
+                        staging=result.staging, staged_bytes=result.staged_bytes,
                     )],
                     total_bytes=len(stream),
                     n_subpixels=C * H * W,

@@ -5,8 +5,11 @@ package's build directory (`lbdrn_msic_tpu_torch/_build/`, git-ignored) on
 first use; the source tree itself is never written.  Concurrent first uses
 (several test processes) each compile to a private temporary file and
 `os.replace` it into place, so a reader never sees a half-written library.
-`load()` returns None when the library cannot be built; the weight codec
-then uses its pure-Python mirror.
+A library is kept only while its stamp matches this machine, compiler and
+sources (`ops/_build.py::build_stamp`, the rule of the CUDA libraries), so
+a build directory copied from another machine is rebuilt.  `load()`
+returns None when the library cannot be built or loaded, and keeps the
+cause in `load_error`; the weight codec then uses its pure-Python mirror.
 """
 
 from __future__ import annotations
@@ -14,60 +17,48 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import tempfile
 import threading
+
+from lbdrn_msic_tpu_torch.ops._build import build_stamp, compile_into, is_current
 
 _DIR = os.path.join(os.path.dirname(__file__), "native")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-_SO = os.path.join(BUILD_DIR, "liblbdrn_native.so")
 SOURCES = ("fpzcodec.cc", "lpc.cc", "assemble.cc")
 _HEADERS = ("rangecoder.h",)
+_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread")
 _lock = threading.Lock()
 _lib = None
 _tried = False
+load_error = None  # why the last load() returned None
 
 
-def _stale() -> bool:
-    if not os.path.exists(_SO):
-        return True
-    t = os.path.getmtime(_SO)
-    return any(
-        os.path.getmtime(os.path.join(_DIR, f)) > t for f in SOURCES + _HEADERS
-    )
-
-
-def build() -> str:
-    """Compile the library if it is missing or older than its sources;
-    returns its path.  Raises on a compiler failure."""
-    if not _stale():
-        return _SO
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run(
-            ["g++", "-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread",
-             *[os.path.join(_DIR, f) for f in SOURCES], "-o", tmp],
-            check=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            timeout=300,
-        )
-        os.replace(tmp, _SO)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return _SO
+def build(force: bool = False) -> str:
+    """Compile the library unless one with the current stamp is there (or
+    `force`); returns its path.  Raises on a compiler failure."""
+    so = os.path.join(BUILD_DIR, "liblbdrn_native.so")
+    stamp = build_stamp("g++", _FLAGS, [os.path.join(_DIR, f) for f in SOURCES + _HEADERS])
+    if force or not is_current(so, stamp):
+        compile_into(so, ["g++", *_FLAGS, *[os.path.join(_DIR, f) for f in SOURCES]],
+                     stamp, timeout=300)
+    return so
 
 
 def load():
-    """Return the ctypes library, or None when it cannot be built."""
-    global _lib, _tried
+    """Return the ctypes library, or None when it cannot be built or
+    loaded (the cause in `load_error`).  A library that does not load is
+    rebuilt once."""
+    global _lib, _tried, load_error
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
         try:
-            lib = ctypes.CDLL(build())
-        except (OSError, subprocess.SubprocessError):
+            try:
+                lib = ctypes.CDLL(build())
+            except OSError:
+                lib = ctypes.CDLL(build(force=True))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
+            load_error = f"{type(exc).__name__}: {exc}"
             return None
 
         u8p = ctypes.POINTER(ctypes.c_uint8)

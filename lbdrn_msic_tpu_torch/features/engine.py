@@ -1,4 +1,4 @@
-"""Feature/label engine, "cached" and "full" staging.
+"""Feature/label engine: the four ways training batches are built.
 
 Semantics match the reference pipeline (reference LBDRNdataset.py:92-133 /
 decode.py:77-102) and are bit-identical to the JAX package's engine: the
@@ -11,12 +11,16 @@ order, LBDRNdataset.py:119-129): ``[band0: (2D+1)^2 taps row-major, band1:
 ..., ...]`` with taps optionally center-subtracted (RELATIVE) and
 max-normalized.  Coordinate features are not ported yet.
 
-Training batches come from one of two staging buffers, both built once
-with the slice path: "cached", every pixel's final f32 model input row
-(`build_feature_cache`), where a batch is one row gather; or "full", every
-pixel's integer taps in their smallest dtype (`build_tap_matrix`), where a
-batch is one row gather, a convert and a scale (`staged_features`).  Both
-give values bit-identical to `row_block_features`.
+Training batches come from one of four staging modes, largest first:
+"cached", every pixel's final f32 model input row (`build_feature_cache`),
+where a batch is one row gather; "full", every pixel's integer taps in
+their smallest dtype (`build_tap_matrix`), where a batch is one row
+gather, a convert and a scale (`staged_features`); "banded", every padded
+row's horizontal windows in g-pixel granules (`build_row_taps`, ~1/5 of
+"full"), where a batch is `side` row gathers a granule
+(`banded_window_features`); and "gather", nothing staged, a batch
+gathered tap by tap from the padded plane (`gather_features`).  Every mode
+gives values bit-identical to the slice path (`row_block_features`).
 """
 
 from __future__ import annotations
@@ -102,6 +106,107 @@ def feature_block_rows(H: int, W: int) -> int:
     return min(H, max(1, (1 << 17) // max(W, 1)))
 
 
+def _write_features(taps: torch.Tensor, scale: torch.Tensor, g: int,
+                    out: torch.Tensor | None) -> torch.Tensor:
+    """(m, g, C, side, side) integer taps -> (m * g, F) f32 times `scale`,
+    or written into `out`: an f32 view of m * g rows of F values (say the
+    first F columns of a zero-padded batch buffer, with any leading axes)."""
+    m = taps.shape[0]
+    if out is None:
+        return taps.reshape(m * g, -1).to(torch.float32) * scale
+    o = out.unflatten(-2, (-1, g)).unflatten(-1, taps.shape[2:])
+    o.copy_(taps.view(o.shape))
+    return out.mul_(scale)
+
+
+def gather_features(plane, scale, pixel_idx: torch.Tensor, spec: FeatureSpec, H: int,
+                    W: int, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Gather path ("gather" staging: nothing staged): features of flat
+    pixel ids (clipped to the image), each window's taps gathered from the
+    padded plane (C, H+2D, W+2D).  Returns (B, feature_dim) f32, or writes
+    into `out` as `_write_features` does."""
+    if spec.use_coords or not spec.use_colors:
+        raise NotImplementedError(
+            "coordinate features are not ported yet (ROADMAP: pipelined "
+            "encode/decode and the full-plane decode)"
+        )
+    C = plane.shape[0]
+    D = spec.D
+    side = 2 * D + 1
+    Wp = W + 2 * D
+    idx = torch.clamp(pixel_idx, 0, H * W - 1)
+    base = idx // W * Wp + idx % W  # the window's top-left corner, padded coords
+    offs = (torch.arange(side, device=idx.device)[:, None] * Wp
+            + torch.arange(side, device=idx.device)).view(-1)
+    win = (base[:, None] + offs).view(-1)
+    taps = plane.reshape(C, -1)[:, win].view(C, -1, side, side).permute(1, 0, 2, 3)
+    if spec.relative and D > 0:
+        taps = taps - taps[:, :, D : D + 1, D : D + 1]
+    return _write_features(taps[:, None], scale, 1, out)
+
+
+def row_taps_dtype(max_value: int) -> torch.dtype:
+    """Smallest dtype for RAW (not center-subtracted) plane values: uint8,
+    else int16 where the JAX package uses uint16 (torch's uint16 has few
+    operators; raw values above 32767 take int32).  `codec._tap_itemsize`
+    keeps the JAX package's byte count."""
+    if max_value <= 255:
+        return torch.uint8
+    return torch.int16 if max_value <= 32767 else torch.int32
+
+
+def banded_geometry(W: int, g: int) -> Tuple[int, int]:
+    """(Wg, ng_row): width padded to a granule multiple, granules per row."""
+    ng_row = -(-W // g)
+    return ng_row * g, ng_row
+
+
+def build_row_taps(plane, spec: FeatureSpec, H: int, W: int, g: int,
+                   dtype: torch.dtype = torch.int16) -> torch.Tensor:
+    """Banded staging: every padded row's horizontal windows, raw (not
+    center-subtracted): (Hp * ng_row, g * C * side) `dtype`, Hp = H + 2D,
+    ng_row = ceil(W / g).  Row ``r * ng_row + jg`` holds, in (g, C, side)
+    order, ``plane[c, r, jg*g + t + dj]`` for pixel t < g of the granule and
+    window column dj < side; columns past W are zero.  A pixel's window is
+    put back together at batch time from `side` of these rows
+    (`banded_window_features`), for ~1/5 of the full tap matrix's bytes.
+    One strided copy of the plane's column windows (`unfold`)."""
+    C = plane.shape[0]
+    side = 2 * spec.D + 1
+    Hp = H + 2 * spec.D
+    Wg, ng_row = banded_geometry(W, g)
+    out = torch.zeros((Hp, Wg, C, side), dtype=dtype, device=plane.device)
+    out[:, :W] = plane[:, :Hp, : W + 2 * spec.D].unfold(2, side, 1).permute(1, 2, 0, 3)
+    return out.view(Hp * ng_row, g * C * side)
+
+
+def banded_window_features(row_taps: torch.Tensor, scale, gidx: torch.Tensor,
+                           spec: FeatureSpec, H: int, W: int, g: int,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
+    """Banded path: features of granule ids over the W-padded grid, gidx in
+    [0, H * ng_row).  Returns (m * g, feature_dim) f32, or writes into
+    `out` as `_write_features` does; padding columns (j >= W) give zero-tap
+    rows, which callers mask."""
+    if spec.use_coords or not spec.use_colors:
+        raise NotImplementedError(
+            "coordinate features are not ported yet (ROADMAP: pipelined "
+            "encode/decode and the full-plane decode)"
+        )
+    D = spec.D
+    side = 2 * D + 1
+    _, ng_row = banded_geometry(W, g)
+    C = row_taps.shape[-1] // (g * side)
+    m = gidx.shape[0]
+    # granule (i, jg)'s window rows: padded rows i + di, granule column jg
+    rows = gidx[:, None] + torch.arange(side, device=gidx.device) * ng_row
+    taps = torch.index_select(row_taps, 0, rows.view(-1)).view(m, side, g, C, side)
+    taps = taps.permute(0, 2, 3, 1, 4)  # (m, g, C, di, dj)
+    if spec.relative and D > 0:
+        taps = taps.to(torch.int32)
+        taps = taps - taps[:, :, :, D : D + 1, D : D + 1]
+    return _write_features(taps, scale, g, out)
+
+
 def build_feature_cache(plane, scale, spec: FeatureSpec, H: int, W: int,
                         padded_in: int, g: int = 1) -> torch.Tensor:
     """Every pixel's final model input row — f32, zero-padded to
@@ -177,6 +282,31 @@ def build_label_matrix(lsb: torch.Tensor, pad_rows_to: int | None = None) -> tor
     if pad_rows_to is not None and pad_rows_to > out.shape[0]:
         out = torch.cat([out, out.new_zeros((pad_rows_to - out.shape[0], C))])
     return out.contiguous()
+
+
+def build_banded_labels(lsb: torch.Tensor, H: int, W: int, g: int) -> torch.Tensor:
+    """(C, H, W) integer LSB plane -> (H * ng_row, g * C) int32 matrix of
+    granule-row labels over the W-padded grid, zero in the padding
+    columns (the training loop masks them)."""
+    C = lsb.shape[0]
+    Wg, ng_row = banded_geometry(W, g)
+    out = torch.zeros((H, Wg, C), dtype=torch.int32, device=lsb.device)
+    out[:, :W] = lsb.permute(1, 2, 0)
+    return out.view(H * ng_row, g * C)
+
+
+def gather_pixel_labels(labels: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Label rows of pixel ids `idx` (in range) from an (n, C) label
+    matrix.  (The JAX package gathers 8-pixel granule rows and selects the
+    member, to dodge TPU lane padding; the values are the same.)"""
+    return torch.index_select(labels, 0, idx)
+
+
+def gather_labels(label_matrix: torch.Tensor, scale, pixel_idx: torch.Tensor) -> torch.Tensor:
+    """(B, C) f32 label vectors of flat pixel ids (clipped), times `scale`
+    (1/(2^K - 1))."""
+    idx = torch.clamp(pixel_idx, 0, label_matrix.shape[0] - 1)
+    return gather_pixel_labels(label_matrix, idx).to(torch.float32) * scale
 
 
 def build_granule_labels(lsb: torch.Tensor, H: int, W: int, g: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""The per-image overfit loop (`fit`, "cached" staging) and the rate-sweep
-loop that trains one network per rate point K together
-(`fit_rate_experts`, "full" staging).
+"""The per-image overfit loop (`fit`, in any of the four staging modes of
+features/engine.py) and the rate-sweep loop that trains one network per
+rate point K together (`fit_rate_experts`, "full" or "banded" staging).
 
 Faithful semantics (RD parity with the reference at matched settings):
 - per-epoch shuffle = fresh random permutation of all g-pixel granules;
@@ -12,10 +12,10 @@ Faithful semantics (RD parity with the reference at matched settings):
   best-params checkpoint (reference encode.py:96-117); with epochs == 1 the
   final weights are taken directly (reference encode.py:100-103).
 
-Every step of `fit` is one row gather from the feature cache and one call
-of the fused step (`ops/fused_step.py`: kernel K1 on the card) or, with
-`use_fused=False`, of the exact autograd step; every step of
-`fit_rate_experts` is one gather per expert from its tap matrix and one
+Every step of `fit` builds one batch by its staging mode and makes one
+call of the fused step (`ops/fused_step.py`: kernel K1 on the card) or,
+with `use_fused=False`, of the exact autograd step; every step of
+`fit_rate_experts` builds one batch per expert from its taps and makes one
 call of the expert step (kernel K2) for all experts.  With `multi_k`, the
 fused loops run each epoch in chunks of k steps instead: one gather of the
 chunk's batches and one multi-step call (K3, or K4 for experts), the same
@@ -34,7 +34,7 @@ the JAX package's init params and permutations instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,13 +42,20 @@ import torch
 from lbdrn_msic_tpu_torch import resolve_device
 from lbdrn_msic_tpu_torch.core.config import FeatureSpec, ModelSpec, TrainSpec
 from lbdrn_msic_tpu_torch.features.engine import (
+    banded_geometry,
+    banded_window_features,
+    build_banded_labels,
     build_feature_cache,
     build_granule_labels,
     build_label_matrix,
+    build_row_taps,
     build_tap_matrix,
     feature_block_rows,
+    gather_features,
     lsb_scale,
     pad_plane,
+    row_block_features,
+    row_taps_dtype,
     split_msb_lsb,
     staged_features,
     tap_matrix_dtype,
@@ -83,6 +90,8 @@ class FitResult:
     final_params: SirenParams
     epoch_losses: torch.Tensor  # (epochs,) mean train loss per epoch
     step_losses: torch.Tensor  # (epochs, steps_per_epoch) per-iteration loss
+    staging: str = "cached"  # the mode the batches were built in
+    staged_bytes: int = 0  # device bytes of its staging buffers (all experts')
 
 
 def make_lr_schedule(tspec: TrainSpec, steps_per_epoch: int) -> Callable[[int], float]:
@@ -139,17 +148,33 @@ def dataset_mse(params: SirenParams, x_cache: torch.Tensor, labels: torch.Tensor
                       mspec, H, W, labels.shape[1], block_rows, fast_act)
 
 
-def _batch_geometry(tspec: TrainSpec, n: int):
-    """(bs, g, n_g, bpg, steps) for n pixels: batch size, sampling granule
-    (1 when it does not divide the batch), granules, granules per batch,
-    steps per epoch."""
+class Geometry(NamedTuple):
+    """A fit's batch geometry: batch size, sampling granule, granules,
+    granules per image row ("banded"'s W-padded grid; 0 for flat grids,
+    whose granules are runs of g pixels in row-major order), granules per
+    batch, steps per epoch."""
+
+    bs: int
+    g: int
+    n_g: int
+    ng_row: int
+    bpg: int
+    steps: int
+
+
+def _batch_geometry(tspec: TrainSpec, H: int, W: int, staging: str = "cached") -> Geometry:
+    """The JAX package's batch geometry (train/loop.py:294-314): the
+    granule is 1 for "gather" and where it does not divide the batch;
+    "banded" counts H * ceil(W / g) granules, which never cross a row."""
+    n = H * W
     bs = min(tspec.batch_size, n)
-    g = tspec.sample_granule
+    g = tspec.sample_granule if staging != "gather" else 1
     if g > 1 and bs % g:
         g = 1
-    n_g = -(-n // g)
+    ng_row = banded_geometry(W, g)[1] if staging == "banded" else 0
+    n_g = H * ng_row if ng_row else -(-n // g)
     bpg = bs // g
-    return bs, g, n_g, bpg, -(-n_g // bpg)
+    return Geometry(bs, g, n_g, ng_row, bpg, -(-n_g // bpg))
 
 
 def multi_step_k(multi_k: Optional[int], use_fused: bool, E: int, bs: int,
@@ -175,27 +200,35 @@ def _chunks(steps: int, k: int):
     return [(s0, min(k, steps - s0)) for s0 in range(0, steps, k)]
 
 
-def _epoch_batches(epoch: int, perms, generator, n_g: int, n: int, g: int, bpg: int,
-                   steps: int, dev: torch.device):
+def _epoch_batches(epoch: int, perms, generator, geo: Geometry, H: int, W: int,
+                   dev: torch.device):
     """This epoch's permutation (injected, else drawn from `generator`),
     padded to whole batches -> (granule ids (steps, bpg), masks (steps, bs))."""
     if perms is not None:
         perm = torch.from_numpy(np.array(perms[epoch], dtype=np.int64))
     else:
-        perm = torch.randperm(n_g, generator=generator)
-    perm = torch.cat([perm, torch.full((steps * bpg - n_g,), n_g, dtype=torch.int64)])
-    return _granule_batches(perm.view(steps, bpg).to(dev), n_g, n, g, steps)
+        perm = torch.randperm(geo.n_g, generator=generator)
+    pad = torch.full((geo.steps * geo.bpg - geo.n_g,), geo.n_g, dtype=torch.int64)
+    perm = torch.cat([perm, pad]).view(geo.steps, geo.bpg).to(dev)
+    return _granule_batches(perm, geo.n_g, H * W, geo.g, geo.steps, geo.ng_row, W)
 
 
-def _granule_batches(perm: torch.Tensor, n_g: int, n: int, g: int, steps: int):
+def _granule_batches(perm: torch.Tensor, n_g: int, n: int, g: int, steps: int,
+                     ng_row: int = 0, W: int = 0):
     """(steps, bs//g) padded permutation -> (clipped granule ids, (steps, bs)
-    f32 masks): padding ids n_g and pixels past n are masked."""
+    f32 masks): padding ids n_g are masked, and pixels past n on a flat
+    grid, or the padding columns (j >= W) of a banded grid (`ng_row`
+    granules a row)."""
     gvalid = perm < n_g
     gi = torch.clamp(perm, max=n_g - 1)
     if g == 1:
         return gi, gvalid.to(torch.float32)
-    pix = gi[:, :, None] * g + torch.arange(g, device=perm.device)
-    valid = gvalid[:, :, None] & (pix < n)
+    t = torch.arange(g, device=perm.device)
+    if ng_row:
+        valid = (gi % ng_row * g)[:, :, None] + t < W
+    else:
+        valid = gi[:, :, None] * g + t < n
+    valid = gvalid[:, :, None] & valid
     return gi, valid.reshape(steps, -1).to(torch.float32)
 
 
@@ -211,6 +244,8 @@ def fit(
     H: int,
     W: int,
     C: int,
+    staging: str = "cached",
+    tap_dtype: Optional[torch.dtype] = None,
     use_fused: Optional[bool] = None,
     multi_k: Optional[int] = None,
     mm_dtype: Optional[str] = None,
@@ -218,21 +253,38 @@ def fit(
     perms: Optional[Sequence[np.ndarray]] = None,
     device=None,
 ) -> FitResult:
-    """Overfit one network to one image tile, batches gathered from the
-    f32 feature cache ("cached" staging).
+    """Overfit one network to one image tile.
 
     plane: (C, H+2D, W+2D) int32 padded base plane; plane_scale: 0-d 1/max.
     labels: (C, H, W) integer LSB plane; label_scale: 1/(2^K-1) as float32.
+    `staging` (features/engine.py; `codec.pick_staging` chooses it by
+    size): how each step's batch is built — "cached", one row gather from
+    the f32 feature cache; "full", from the integer tap matrix; "banded",
+    from the row taps over the W-padded granule grid, padding columns
+    masked; "gather", tap by tap from the plane, at granule 1.  "full" and
+    "banded" without color features fall to "gather".  `tap_dtype`: the
+    tap matrix's dtype ("full") or the row taps' raw dtype ("banded");
+    default the smallest that holds the plane.  Every mode feeds the same
+    step with values bit-identical to the feature cache's, so where the
+    granule grids coincide (W % g == 0; granule 1 for "gather") every mode
+    trains bit for bit as "cached" does.  Evals slice the feature cache
+    ("cached"), the tap matrix ("full": its rows are pixels in row-major
+    order, whatever g) or the plane (the slice path).
+
     `generator`: CPU generator for the init params and the per-epoch
     permutations; `init` / `perms` (one permutation of the granule ids per
     epoch) replace the draws when given.  `use_fused` (default: on CUDA)
     trains with the fused step, else with the exact autograd step.
     `multi_k` (fused only; resolved by `multi_step_k`): k steps per
     `fused_multi_step` call (kernel K3), each epoch split by `_chunks`, the
-    chunk's batches gathered at once; the result is the per-step fit's.
+    chunk's batches built at once; the result is the per-step fit's.
     `mm_dtype` (None or "bfloat16"): the fused steps' product operands, as
     `fused_train_step` takes it; the exact step and the eval ignore it.
     """
+    if staging not in ("cached", "full", "banded", "gather"):
+        raise ValueError(f"unknown staging mode {staging!r}")
+    if staging in ("full", "banded") and not fspec.use_colors:
+        staging = "gather"  # coords-only features have no taps to stage
     dev = resolve_device(device)
     if use_fused is None:
         use_fused = dev.type == "cuda"
@@ -241,17 +293,76 @@ def fit(
         plane, plane_scale, labels = plane.to(dev), plane_scale.to(dev), labels.to(dev)
         dim_in = fspec.feature_dim(C)
         padded_in = pad_dim(dim_in)
-        n = H * W
-        bs, g, n_g, bpg, steps = _batch_geometry(tspec, n)
+        geo = _batch_geometry(tspec, H, W, staging)
+        bs, g, n_g, bpg, steps = geo.bs, geo.g, geo.n_g, geo.bpg, geo.steps
         block_rows = feature_block_rows(H, W)
         k = multi_step_k(multi_k, use_fused, 1, bs, padded_in, steps)
+        kb = max(k, 1)
 
-        x_cache = build_feature_cache(plane, plane_scale, fspec, H, W, padded_in, g=g)
-        y_all = build_label_matrix(labels, n_g * g).to(torch.float32) * np.float32(label_scale)
-        xg = x_cache.view(n_g, g * padded_in)
-        yg = y_all.view(n_g, g * C)
-        xbuf = torch.empty((max(k, 1) * bpg, g * padded_in), dtype=torch.float32, device=dev)
-        ybuf = torch.empty((max(k, 1) * bpg, g * C), dtype=torch.float32, device=dev)
+        # labels: flat granule rows (the evals'; the batches' but for
+        # "banded", which gathers granule rows of the W-padded grid)
+        ls = np.float32(label_scale)
+        y_all = build_label_matrix(labels, -(-H * W // g) * g).to(torch.float32) * ls
+        if staging == "banded":
+            y_all_g = build_banded_labels(labels, H, W, g).to(torch.float32) * ls
+        else:
+            y_all_g = y_all.view(n_g, g * C)
+        # one step's (or one k-step chunk's) batch; columns past dim_in stay 0
+        xbuf = torch.zeros((kb * bs, padded_in), dtype=torch.float32, device=dev)
+        ybuf = torch.empty((kb * bpg, g * C), dtype=torch.float32, device=dev)
+        xeval = torch.zeros((block_rows * W, padded_in), dtype=torch.float32, device=dev)
+
+        def slice_rows(r0):
+            xeval[:, :dim_in] = row_block_features(plane, plane_scale, r0, fspec, H, W,
+                                                   block_rows)
+            return xeval
+
+        if staging == "cached":
+            x_cache = build_feature_cache(plane, plane_scale, fspec, H, W, padded_in, g=g)
+            xg = x_cache.view(n_g, g * padded_in)
+            staged = x_cache
+
+            def stage_x(ids):
+                torch.index_select(xg, 0, ids, out=xbuf.view(-1, g * padded_in)[: len(ids)])
+
+            def x_rows(r0):
+                return x_cache[r0 * W : (r0 + block_rows) * W]
+        elif staging == "full":
+            taps = build_tap_matrix(plane, fspec, H, W,
+                                    tap_dtype or tap_matrix_dtype(int(plane.max()), fspec.relative),
+                                    g=g)
+            staged = taps
+
+            def stage_x(ids):
+                staged_features(taps, plane_scale, ids, out=xbuf[: len(ids) * g, :dim_in])
+
+            def x_rows(r0):
+                xe = xeval[:, :dim_in]
+                xe.copy_(taps.view(-1, dim_in)[r0 * W : (r0 + block_rows) * W])
+                xe.mul_(plane_scale)
+                return xeval
+        elif staging == "banded":
+            row_taps = build_row_taps(plane, fspec, H, W, g,
+                                      tap_dtype or row_taps_dtype(int(plane.max())))
+            staged = row_taps
+
+            def stage_x(ids):
+                banded_window_features(row_taps, plane_scale, ids, fspec, H, W, g,
+                                       out=xbuf[: len(ids) * g, :dim_in])
+
+            x_rows = slice_rows
+        else:
+            staged = plane.new_empty(0)  # nothing staged
+
+            def stage_x(ids):
+                gather_features(plane, plane_scale, ids, fspec, H, W, out=xbuf[: len(ids), :dim_in])
+
+            x_rows = slice_rows
+
+        def stage(ids):
+            """The batches of granule ids `ids` (one step's or a chunk's)."""
+            stage_x(ids)
+            torch.index_select(y_all_g, 0, ids, out=ybuf[: len(ids)])
 
         if init is None:
             init = siren_init(generator, dim_in, C, mspec, pad_input_to=padded_in)
@@ -265,33 +376,32 @@ def fit(
         best_mse, best_epoch = np.float32(1e6), -1
         count = 0
         for epoch in range(tspec.epochs):
-            gi, masks = _epoch_batches(epoch, perms, generator, n_g, n, g, bpg, steps, dev)
+            gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev)
             if k:
                 for s0, kc in _chunks(steps, k):
-                    ids = gi[s0 : s0 + kc].reshape(-1)
-                    xb = torch.index_select(xg, 0, ids, out=xbuf[: kc * bpg])
-                    yb = torch.index_select(yg, 0, ids, out=ybuf[: kc * bpg])
-                    fused_multi_step(params, m_state, v_state, xb.view(kc, bs, padded_in),
-                                     yb.view(kc, bs, C), masks[s0 : s0 + kc],
+                    stage(gi[s0 : s0 + kc].reshape(-1))
+                    fused_multi_step(params, m_state, v_state,
+                                     xbuf[: kc * bs].view(kc, bs, padded_in),
+                                     ybuf[: kc * bpg].view(kc, bs, C), masks[s0 : s0 + kc],
                                      [schedule(count + s) for s in range(kc)], count + 1,
                                      mspec, C, loss_out=step_losses[epoch, s0 : s0 + kc],
                                      mm_dtype=mm_dtype)
                     count += kc
             else:
                 for s in range(steps):
-                    torch.index_select(xg, 0, gi[s], out=xbuf)
-                    torch.index_select(yg, 0, gi[s], out=ybuf)
-                    step_fn(params, m_state, v_state, xbuf.view(bs, padded_in),
-                            ybuf.view(bs, C), masks[s], schedule(count), count + 1,
-                            mspec, C, loss_out=step_losses[epoch, s], mm_dtype=mm_dtype)
+                    stage(gi[s])
+                    step_fn(params, m_state, v_state, xbuf, ybuf.view(bs, C), masks[s],
+                            schedule(count), count + 1, mspec, C,
+                            loss_out=step_losses[epoch, s], mm_dtype=mm_dtype)
                     count += 1
 
             if tspec.epochs == 1:
                 best = params.map(torch.clone)
                 best_mse, best_epoch = float(step_losses[0].mean()), 1
             elif (epoch + 1) % min(tspec.val_every, tspec.epochs) == 0:
-                mse = float(dataset_mse(params, x_cache, y_all, mspec, H, W,
-                                        block_rows, fast_act=use_fused))
+                mse = float(blocks_mse(params, x_rows,
+                                       lambda r0: y_all[r0 * W : (r0 + block_rows) * W],
+                                       mspec, H, W, C, block_rows, fast_act=use_fused))
                 if mse < best_mse:  # strict improvement, one sync per epoch
                     best = params.map(torch.clone)
                     best_mse, best_epoch = mse, epoch + 1
@@ -302,6 +412,8 @@ def fit(
             final_params=params,
             epoch_losses=step_losses.mean(dim=1),
             step_losses=step_losses,
+            staging=staging,
+            staged_bytes=staged.numel() * staged.element_size(),
         )
 
 
@@ -340,18 +452,21 @@ def fit_rate_experts(
     """Train one network per rate point K, all E = len(Ks) experts together.
 
     img: (C, H, W) integer tensor of raw pixels.  Each expert stages its own
-    integer tap matrix of the K-dependent MSB plane ("full" staging, in
-    `tap_dtypes`, default the smallest dtype); labels share one store of
-    the raw pixels, LSB_K = pixel & (2^K - 1) applied per expert after the
-    gather.  All experts start from the same init and see the same
+    taps of the K-dependent MSB plane in `tap_dtypes` (default the smallest
+    dtype): its integer tap matrix ("full" staging) or its raw row taps
+    ("banded", over the W-padded granule grid, padding columns masked);
+    labels share one store of the raw pixels in the same granule layout,
+    LSB_K = pixel & (2^K - 1) applied per expert after the gather.  All
+    experts start from the same init and see the same
     permutation each epoch, drawn as `fit` draws them (`init` / `perms`
     replace the draws when given), so expert e follows the trajectory that
     `fit` would follow at K = Ks[e]: every step is one expert step for all
     experts (`fused_expert_step`, kernel K2 on the card, whose expert e is
     bit-identical to K1; or, with `use_fused=False`, the exact autograd
     step per expert), and every `val_every` epochs each expert's
-    full-image MSE (from its tap matrix, values bit-identical to `fit`'s
-    feature cache) decides its own strict-improvement best params.
+    full-image MSE (from its tap matrix, or for "banded" from its plane by
+    the slice path: values bit-identical to `fit`'s evals) decides its own
+    strict-improvement best params.
 
     `multi_k` (fused only; resolved by `multi_step_k`): k steps of every
     expert per `fused_expert_multi_step` call (kernel K4), each epoch split
@@ -359,13 +474,11 @@ def fit_rate_experts(
     padded_in); the result is the per-step fit's.  `mm_dtype` as for
     `fit`: the fused expert steps' product operands.
 
-    Returns a FitResult whose fields carry a leading expert axis.  Banded
-    staging, cross-image experts (`img_of`) and bucket masks (`hws`) are
-    not ported and raise.
+    Returns a FitResult whose fields carry a leading expert axis.
+    Cross-image experts (`img_of`) and bucket masks (`hws`) are not ported
+    and raise.
     """
-    if staging == "banded":
-        raise NotImplementedError("banded staging is not ported yet (ROADMAP: banded staging)")
-    if staging != "full":
+    if staging not in ("full", "banded"):
         raise ValueError(f"unknown staging mode {staging!r}")
     if img_of is not None:
         raise NotImplementedError(
@@ -382,20 +495,32 @@ def fit_rate_experts(
         img = img.to(dev, torch.int32)
         dim_in = fspec.feature_dim(C)
         padded_in = pad_dim(dim_in)
-        n = H * W
-        bs, g, n_g, bpg, steps = _batch_geometry(tspec, n)
+        geo = _batch_geometry(tspec, H, W, staging)
+        bs, g, n_g, bpg, steps = geo.bs, geo.g, geo.n_g, geo.bpg, geo.steps
         block_rows = feature_block_rows(H, W)
         k = multi_step_k(multi_k, use_fused, E, bs, padded_in, steps, hws is not None)
+        banded = staging == "banded"
         if tap_dtypes is None:
             max_img = int(img.max())
-            tap_dtypes = [tap_matrix_dtype(max_img >> K, fspec.relative) for K in Ks]
+            tap_dtypes = [row_taps_dtype(max_img >> K) if banded
+                          else tap_matrix_dtype(max_img >> K, fspec.relative) for K in Ks]
 
-        scales, taps = [], []
+        scales, taps, planes = [], [], []
         for K, dt in zip(Ks, tap_dtypes):
             plane, scale = pad_plane(split_msb_lsb(img, K)[0], fspec.D)
             scales.append(scale)
-            taps.append(build_tap_matrix(plane, fspec, H, W, dt, g=g))
-        raw = build_granule_labels(img, H, W, g)  # raw pixels, (n_g, g*C)
+            if banded:  # the plane stays for the eval's slice path
+                planes.append(plane)
+                taps.append(build_row_taps(plane, fspec, H, W, g, dt))
+            else:
+                taps.append(build_tap_matrix(plane, fspec, H, W, dt, g=g))
+        # raw pixels, (n_g, g*C), and as an (H, W, C) image for the eval
+        if banded:
+            raw = build_banded_labels(img, H, W, g)
+            raw_img = raw.view(H, -1, C)[:, :W]
+        else:
+            raw = build_granule_labels(img, H, W, g)
+            raw_img = raw.view(-1, C)[: H * W].view(H, W, C)
         kmasks = torch.tensor([(1 << K) - 1 for K in Ks], dtype=torch.int32, device=dev)
         kmasks = kmasks.view(E, 1, 1)
         lscales = torch.tensor([lsb_scale(K) for K in Ks], dtype=torch.float32, device=dev)
@@ -411,7 +536,11 @@ def fit_rate_experts(
             """The batches of kc steps (granule ids (kc * bpg,)) into the
             buffers' first kc entries."""
             for e in range(E):
-                staged_features(taps[e], scales[e], ids, out=xbuf[:kc, e, :, :dim_in])
+                out = xbuf[:kc, e, :, :dim_in]
+                if banded:
+                    banded_window_features(taps[e], scales[e], ids, fspec, H, W, g, out=out)
+                else:
+                    staged_features(taps[e], scales[e], ids, out=out)
             torch.index_select(raw, 0, ids, out=lbuf[: kc * bpg])
             torch.bitwise_and(lbuf[: kc * bpg].view(kc, 1, bs, C), kmasks, out=ybits[:kc])
             ybuf[:kc].copy_(ybits[:kc]).mul_(lscales)
@@ -422,12 +551,15 @@ def fit_rate_experts(
 
         def x_rows(e, r0):
             xe = xeval[:, :dim_in]
-            xe.copy_(taps[e].view(-1, dim_in)[r0 * W : r0 * W + nb])
-            xe.mul_(scales[e])
+            if banded:
+                xe.copy_(row_block_features(planes[e], scales[e], r0, fspec, H, W, block_rows))
+            else:
+                xe.copy_(taps[e].view(-1, dim_in)[r0 * W : r0 * W + nb])
+                xe.mul_(scales[e])
             return xeval
 
         def y_rows(e, r0):
-            rows = raw.view(-1, C)[r0 * W : r0 * W + nb]
+            rows = raw_img[r0 : r0 + block_rows].reshape(-1, C)
             return (rows & kmasks[e]).to(torch.float32) * lscales[e]
 
         if init is None:
@@ -442,7 +574,7 @@ def fit_rate_experts(
         best_mse, best_epoch = [np.float32(1e6)] * E, [-1] * E
         count = 0
         for epoch in range(tspec.epochs):
-            gi, masks = _epoch_batches(epoch, perms, generator, n_g, n, g, bpg, steps, dev)
+            gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev)
             if k:
                 for s0, kc in _chunks(steps, k):
                     stage(gi[s0 : s0 + kc].reshape(-1), kc)
@@ -483,4 +615,6 @@ def fit_rate_experts(
             final_params=params,
             epoch_losses=step_losses.mean(dim=2),
             step_losses=step_losses,
+            staging=staging,
+            staged_bytes=sum(t.numel() * t.element_size() for t in taps),
         )

@@ -2,6 +2,7 @@
 cross-decode both ways, port streams deterministic."""
 
 import struct
+import warnings
 
 import numpy as np
 import pytest
@@ -89,10 +90,12 @@ def test_pick_staging_rule():
     fs, ts = FeatureSpec(), TrainSpec(sample_granule=8)
     jfs, jts = JFeatureSpec(), JTrainSpec(sample_granule=8)
     for H, W, C in ((2048, 2048, 4), (4096, 4096, 4), (6000, 6000, 8), (20000, 20000, 8)):
-        got = codec.pick_staging(H, W, C, 127, fs, ts)
+        with warnings.catch_warnings():  # 20000^2 x 8 falls back to gathers
+            warnings.simplefilter("ignore", RuntimeWarning)
+            got, _ = codec.pick_staging(H, W, C, 127, fs, ts)
         ref, _ = jcodec.pick_staging(H, W, C, 127, jfs, jts, warn=False)
         assert got == ref
-    assert codec.pick_staging(2048, 2048, 4, 127, fs, ts) == "cached"
+    assert codec.pick_staging(2048, 2048, 4, 127, fs, ts) == ("cached", torch.float32)
 
 
 @pytest.mark.parametrize("c,h,chunk_rows", [(255, 0x7FFFFFFF, 1), (1, 0x7FFFFFFF, 2),
@@ -116,11 +119,17 @@ def test_lpc_v2_crafted_header_rejected(c, h, chunk_rows):
     assert np.array_equal(lpc.decode(good), msb)
 
 
-def test_unported_paths_raise(scene):
+def test_unported_paths_raise(scene, monkeypatch):
     cfg, _ = _cfgs("lpc")
-    with pytest.raises(NotImplementedError):  # needs "full" staging
-        codec._train_tile(np.zeros((8, 3000, 3000), np.uint16), cfg,
-                          codec.tile_generator(0, 0), torch.device("cpu"))
+    # a tile above the feature-cache budget trains on "full" staging: the
+    # same network as "cached" (W % 8 == 0), so the same stream
+    cached, _ = codec.encode_image(scene, cfg, device="cpu")
+    monkeypatch.setattr(codec, "STAGE_BUDGET_BYTES", 64 * 64 * 128 * 4)
+    assert codec.pick_staging(64, 64, 4, int(scene.max()) >> K, cfg.features,
+                              cfg.train) == ("full", torch.int8)
+    full, _ = codec.encode_image(scene, cfg, device="cpu")
+    assert full == cached
+    assert np.array_equal(codec.decode_stream(full, device="cpu")[0] >> K, scene >> K)
     coords = CodecConfig(K=K, features=FeatureSpec(use_coords=True), train=cfg.train)
     with pytest.raises(NotImplementedError):
         codec.encode_image(scene, coords, device="cpu")

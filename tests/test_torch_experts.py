@@ -309,9 +309,16 @@ def test_unported_sweep_paths_raise(scene, monkeypatch):
     t = cfgs[0].train
     args = (torch.from_numpy(scene.astype(np.int32)), (4, 5), torch.Generator(),
             FeatureSpec(), ModelSpec(), t, 64, 56, 4)
-    for kw in ({"staging": "banded"}, {"img_of": (0, 0)}, {"hws": object()}):
+    for kw in ({"img_of": (0, 0)}, {"hws": object()}):
         with pytest.raises(NotImplementedError):
             loop.fit_rate_experts(*args, device="cpu", **kw)
+    # the banded expert fit is ported: W % 8 == 0, so the same networks as
+    # the full one
+    full, banded = (loop.fit_rate_experts(*args[:2], torch.Generator().manual_seed(1), *args[3:],
+                                          use_fused=True, staging=st, device="cpu")
+                    for st in ("full", "banded"))
+    assert torch.equal(banded.step_losses, full.step_losses)
+    assert banded.best_mse == full.best_mse
     # the multi-step path is ported: 7 steps an epoch as a 4-step chunk and
     # a 3-step one, bit for bit the per-step fit
     fits = [loop.fit_rate_experts(*args[:2], torch.Generator().manual_seed(1), *args[3:],
@@ -321,11 +328,12 @@ def test_unported_sweep_paths_raise(scene, monkeypatch):
     assert fits[0].best_mse == fits[1].best_mse
     with pytest.raises(ValueError):
         loop.fit_rate_experts(*args, staging="cached", device="cpu")
-    # the full tap matrices over budget -> banded staging: not ported
+    # the full tap matrices over budget -> banded staging: each point is
+    # still the `encode_image` stream at its K
     monkeypatch.setattr(codec, "STAGE_BUDGET_BYTES", 64 * 56 * 4 * 25 - 1)
     assert codec.plan_rate_points(scene, cfgs)[0] == "banded"
-    with pytest.raises(NotImplementedError):
-        codec.encode_rate_points(scene, cfgs, device="cpu")
+    for cfg, (stream, _) in zip(cfgs, codec.encode_rate_points(scene, cfgs, device="cpu")):
+        assert stream == codec.encode_image(scene, cfg, device="cpu")[0]
 
 
 def test_rate_points_default_to_cuda(scene):
