@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --only kernels
+    python3 chip_smoke.py --only cli   # encode/decode/rd and cli phases only
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
                                        # one encode, one sweep, the fit at
                                        # multi_k 0 and 16, and one epoch of
@@ -12,7 +13,9 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
   build    nvcc build of csrc/fused_step.cu and g++ build of the host codecs
   kernels  K1, the fused-step kernel, against its plain PyTorch version at
            the bench shape (B=8192, 128->64->64->4), full and ragged/masked
-           batches, and at a wider layer set (bc=128, nl=3, C=8); a 5-step
+           batches, at a wider layer set (bc=128, nl=3, C=8) and at the
+           coordinate features' input width (150 -> F_pad 256; timed beside
+           its bound as `coords_f256`); a 5-step
            chain against the exact autograd oracle; the kernel's CUDA-event
            time beside its bound and the plain time; each pass's device
            time by kernel name (a torch.profiler window over 50 steps; pass
@@ -78,8 +81,28 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            profiling path itself, variant by variant with the counts
            zeroed before it: three 512-step runs (median device time)
            beside the bound and the plain time, and the launches it made
-Then the kernels line (K1-K4, K5 per variant), the card line, and the final
-status line.  Exits non-zero without a result when CUDA is absent or the
+  cli      the command lines, each `main(argv)` called in this process on
+           the bench scene written as a TIFF (the port's write_tiff) with the
+           bench flags -K 5 -g 8 --base-codec lpc: (a) cli.encode launches K1
+           exactly 5120 times (K2 never) and writes the encode phase's stream
+           byte for byte; cli.decode -org --keep-recon logs the decode
+           phase's PSNR and bpsp (read back through scrape_log), MSBs exact;
+           cli.summarize writes the CSV row; a second cli.encode prints
+           "Bitstream already created!" and launches nothing; (b) --bucket on
+           the top-left 1900x2000 crop (bucket 2048x2048): 10 x 512 = 5120
+           launches bucketed, 10 x 464 = 4640 exact, both decoded MSB-exact,
+           PSNRs within 0.1 dB; (c) --use-coords --embedding ("cached", F =
+           150, F_pad 256, the rows per CTA cta_layout chose) and with
+           --no-colors (F = 50, F_pad 128): 5120 launches each, decoded
+           through the full-plane path MSB-exact, PSNR, bpsp, the decode's
+           peak device memory; (d) --header-version 0 --trace DIR: the body
+           after the 15-byte header is (a)'s, the stream decodes MSB-exact,
+           the torch.profiler trace names K1's kernels, --compile-log logs
+           its compile line.  Seconds of each run and each encode log's
+           phases
+Then the kernels line (K1-K4, K5 per variant; K1's launches_by_path with
+"cli"), the card line, and the final status line.  Exits non-zero without
+a result when CUDA is absent or the
 package is missing.
 """
 
@@ -90,6 +113,7 @@ import concurrent.futures
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -100,6 +124,7 @@ import time
 FUSED_STEP_DESIGN = {"cluster": 1, "product": "ffma"}
 # the device functions of K1-K4 (csrc/fused_step.cu), by kernel name
 FUSED_STEP_KERNELS = ("step_partials", "step_adam", "multi_step")
+K1_KERNELS = FUSED_STEP_KERNELS[:2]  # one K1 step's two passes
 
 
 def emit(obj) -> None:
@@ -249,32 +274,35 @@ def phase_kernels(card: str):
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
-    def inputs(b, masked, c=C):
-        x = np.zeros((b, F), np.float32)
-        x[:, :dim_in] = rng.uniform(-1, 1, (b, dim_in))
+    def inputs(b, masked, c=C, d_in=dim_in):
+        x = np.zeros((b, pad_dim(d_in)), np.float32)
+        x[:, :d_in] = rng.uniform(-1, 1, (b, d_in))
         y = (1 / (1 + np.exp(-rng.standard_normal((b, c))))).astype(np.float32)
         mask = np.ones(b, np.float32)
         if masked:
             mask[rng.random(b) < 0.2] = 0.0
         return [torch.from_numpy(a).to(dev) for a in (x, y, mask)]
 
-    def init(spec, c):
-        return init_params(torch.Generator().manual_seed(0), dim_in, c, spec,
-                           pad_input_to=F, device=dev)
+    def init(spec, c, d_in=dim_in):
+        return init_params(torch.Generator().manual_seed(0), d_in, c, spec,
+                           pad_input_to=pad_dim(d_in), device=dev)
 
     params0 = init(mspec, C)
     zeros = params0.map(torch.zeros_like)
     clone = lambda p: p.map(torch.clone)
 
-    # the bench widths, full and ragged/masked; and one wider layer set
-    # (bc=128, nl=3, C=8), whose weights do not fit in shared memory beside
-    # a CTA's rows, so the kernel reads them from global memory
+    # the bench widths, full and ragged/masked; one wider layer set (bc=128,
+    # nl=3, C=8), whose weights do not fit in shared memory beside a CTA's
+    # rows, so the kernel reads them from global memory; and the coordinate
+    # features' input width (150 -> F_pad 256, 32 rows a CTA) of the cli phase
     cases, max_err = [], 0.0
-    for name, b, masked, spec, c in (("full", B, False, mspec, C),
-                                     ("ragged_masked", B - 37, True, mspec, C),
-                                     ("wide_ragged_masked", 1000, True, ModelSpec(128, 3), 8)):
-        x, y, mask = inputs(b, masked, c)
-        p0 = init(spec, c)
+    for name, b, masked, spec, c, d_in in (
+            ("full", B, False, mspec, C, dim_in),
+            ("ragged_masked", B - 37, True, mspec, C, dim_in),
+            ("wide_ragged_masked", 1000, True, ModelSpec(128, 3), 8, dim_in),
+            ("coords_embedding_masked", B, True, mspec, C, 150)):
+        x, y, mask = inputs(b, masked, c, d_in)
+        p0 = init(spec, c, d_in)
         z0 = p0.map(torch.zeros_like)
         kp, km, kv = clone(p0), clone(z0), clone(z0)
         pp, pm, pv = clone(p0), clone(z0), clone(z0)
@@ -283,9 +311,10 @@ def phase_kernels(card: str):
         torch.cuda.synchronize()
         err, n_ill = check_step((kp, km, kv), kl, (pp, pm, pv), pl)
         max_err = max(max_err, err)
-        rows, staged = fs.cta_layout([F] + [w.shape[1] for w in p0.weights],
+        rows, staged = fs.cta_layout([pad_dim(d_in)] + [w.shape[1] for w in p0.weights],
                                      fs._smem_optin)
-        cases.append({"case": name, "B": b, "widths": [spec.base_channel, spec.num_layers, c],
+        cases.append({"case": name, "B": b, "F_pad": pad_dim(d_in),
+                      "widths": [spec.base_channel, spec.num_layers, c],
                       "rows_per_cta": rows, "weights_in_smem": staged,
                       "loss": float(kl), "loss_plain": float(pl),
                       "max_abs_err_params": err, "params_with_grad_below_1e-6": n_ill})
@@ -315,11 +344,23 @@ def phase_kernels(card: str):
     ops, nbytes = step_cost(B, dims, P)
     kernel = kernel_entry("fused_train_step", "lbdrn_msic_tpu/ops/fused_step.py:245", card,
                           ops, nbytes, ms, plain_ms, max_err)
+    # time and bound at the coordinate features' width (the cli phase's (c))
+    xc, yc, mc = inputs(B, False, C, 150)
+    pc = init(mspec, C, 150)
+    zc = pc.map(torch.zeros_like)
+    cp, cm, cv = clone(pc), clone(zc), clone(zc)
+    P_c = sum(w.numel() + b.numel() for w, b in zip(pc.weights, pc.biases))
+    ops_c, bytes_c = step_cost(B, [pad_dim(150)] + [w.shape[1] for w in pc.weights], P_c)
+    coords = kernel_entry("", "", card, ops_c, bytes_c, cuda_ms(
+        lambda: fs.fused_train_step(cp, cm, cv, xc, yc, mc, 1e-3, 1, mspec, C), 300), cuda_ms(
+        lambda: fs.fused_train_step_plain(cp, cm, cv, xc, yc, mc, 1e-3, 1, mspec, C), 30), 0.0)
     emit({"phase": "kernels", "cases": cases, "chain_losses": losses,
           "chain_param_drift": drift, "ops": ops, "bytes": nbytes,
           "ms": ms, "passes": passes, "pass_2_after_pass_1_ms": ms - pass1_ms(passes),
           "design": FUSED_STEP_DESIGN, "plain_ms": plain_ms,
-          "bound_ms": kernel["bound_ms"], "card": card})
+          "bound_ms": kernel["bound_ms"],
+          "coords_f256": {k: coords[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+          "card": card})
     return kernel
 
 
@@ -1059,6 +1100,7 @@ def phase_codec(profile: bool, kernel):
     emit({"phase": "rd", "shape": [4, H, W], "psnr_fused_db": p,
           "psnr_exact_step_db": p_x, "bpsp_fused": stats.bpsp, "bpsp_exact_step": st_x.bpsp,
           "exact_step_encode_s": exact_s})
+    return {"stream": streams[0], "psnr_db": p, "bpsp": stats.bpsp}
 
 
 def phase_sweep(profile: bool, kernel):
@@ -1286,9 +1328,192 @@ def phase_staging(profile: bool, k1, k2):
             phase_profile(f"gf2 encode e=1 {want}", lambda: encode_image(big, cfg), [secs])
 
 
+def phase_cli(k1, encoded, img, crop_hw=(1900, 2000)):
+    """The command lines on `img` (the bench scene), written as a TIFF,
+    with the bench flags (-K 5 -g 8 --base-codec lpc; e=10, bs=8192, D=2
+    by default), each CLI's `main(argv)` called in this process on the
+    card: (a) encode -> decode -> summarize, the stream byte for byte the
+    encode phase's (`encoded`); (b) --bucket on the top-left `crop_hw` crop
+    against its exact shape; (c) coordinate features (F_pad 256, and 128
+    without colours); (d) --header-version 0 with --trace.  One run each;
+    every check asserts."""
+    import contextlib
+    import csv
+    import glob
+    import io
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lbdrn_msic_tpu_torch.cli import decode as decode_cli
+    from lbdrn_msic_tpu_torch.cli import encode as encode_cli
+    from lbdrn_msic_tpu_torch.cli import summarize as summarize_cli
+    from lbdrn_msic_tpu_torch.codec import bucket_dims, pick_staging
+    from lbdrn_msic_tpu_torch.core.config import CodecConfig, FeatureSpec, TrainSpec
+    from lbdrn_msic_tpu_torch.eval.metrics import psnr
+    from lbdrn_msic_tpu_torch.io.header import header_size
+    from lbdrn_msic_tpu_torch.io.tiff import read_tiff, write_tiff
+    from lbdrn_msic_tpu_torch.models.siren import pad_dim
+    from lbdrn_msic_tpu_torch.ops import fused_step as fs
+    from lbdrn_msic_tpu_torch.train.loop import _batch_geometry
+    from lbdrn_msic_tpu_torch.utils.logging import scrape_log
+
+    t_phase = time.time()
+    bench = ["-K", "5", "-g", "8", "--base-codec", "lpc"]
+    run_tail = "_r1_K5_bc64_nl2_D2_prec16_lr0.001_bs8192_e10_g8"
+    train = TrainSpec(sample_granule=8)
+    C, H, W = img.shape
+    steps = lambda h, w: train.epochs * _batch_geometry(train, h, w).steps  # K1 launches
+    tmp = tempfile.mkdtemp(prefix="cli_")
+    quiet = io.StringIO()  # the CLIs' log lines (also in their log files)
+
+    def cli(main, argv):
+        with contextlib.redirect_stdout(quiet):
+            return main(argv)
+
+    def tif(name, arr):
+        path = os.path.join(tmp, name + ".tif")
+        write_tiff(path, arr)
+        return path
+
+    def encode(path, out, *flags):
+        """One encode CLI run: (run dir, stream, seconds, [K1, K2] launches,
+        its log's phases)."""
+        rc, secs, launches, _ = counted_run(
+            lambda: cli(encode_cli.main, ["-i", path, "-o", out, *bench, *flags]))
+        assert rc == 0, rc
+        stem = os.path.splitext(os.path.basename(path))[0]
+        run_dir = glob.glob(os.path.join(out, stem + "_r1_*"))[0]
+        log = open(os.path.join(run_dir, "encode.txt")).read()
+        phases = dict(re.findall(r"(\w+)=([\d.]+)s", log.split("phases: ")[1].splitlines()[0]))
+        with open(os.path.join(run_dir, stem + ".bin"), "rb") as f:
+            stream = f.read()
+        return run_dir, stream, secs, launches, {k: float(v) for k, v in phases.items()}
+
+    def decode(run_dir, orig_path, orig, K=5):
+        """One decode CLI run (-org, --keep-recon): its scraped log, MSBs
+        checked exact, seconds, peak device GB."""
+        stem = os.path.basename(run_dir).split("_r1_")[0]
+        rc, secs, launches, peak = counted_run(lambda: cli(decode_cli.main, [
+            "-i", os.path.join(run_dir, stem + ".bin"), "-org", orig_path, "--keep-recon"]))
+        assert rc == 0 and launches == [0, 0], (rc, launches)
+        rec = read_tiff(os.path.join(run_dir, stem + "_recon.tif"))
+        assert rec.shape == orig.shape and np.array_equal(rec >> K, orig >> K), run_dir
+        got = scrape_log(os.path.join(run_dir, "decode.txt"))
+        return got, rec, secs, peak
+
+    # (a) the round trip at the bench config
+    t0 = time.time()
+    scene = tif("scene", img)
+    out_a = os.path.join(tmp, "a")
+    run_a, stream_a, enc_s, launches, phases_a = encode(scene, out_a)
+    assert os.path.basename(run_a) == "scene" + run_tail, run_a
+    n_steps = steps(H, W)  # 10 x 512 at 2048^2
+    assert launches == [n_steps, 0], launches
+    k1["launches_by_path"]["cli"] = launches[0]
+    assert stream_a == encoded["stream"], "CLI stream differs from encode_image's"
+    got_a, rec_a, dec_s, dec_peak = decode(run_a, scene, img)
+    assert got_a["psnr"] == encoded["psnr_db"] and got_a["bpsp"] == encoded["bpsp"], got_a
+    assert cli(summarize_cli.main, ["-i", "scene", "-o", out_a, "--k-min", "5", "--k-max", "5",
+                                    "-g", "8", "--base-codec", "lpc"]) == 0
+    with open(os.path.join(out_a, "results_r1_bc64_nl2_D2_prec16_lr0.001_bs8192_e10_g8.csv")) as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == ["K", "scene_MSE", "scene_PSNR", "scene_bpsp", "scene_bits"], rows
+    assert float(rows[1][2]) == got_a["psnr"] and int(rows[1][4]) == 8 * len(stream_a), rows
+    quiet.seek(0)
+    quiet.truncate()
+    rc, again_s, again, _ = counted_run(lambda: cli(encode_cli.main, ["-i", scene, "-o", out_a,
+                                                                      *bench]))
+    assert rc == 0 and again == [0, 0], again
+    assert quiet.getvalue().strip() == "Bitstream already created!", quiet.getvalue()
+    a = {"seconds": time.time() - t0, "encode_s": enc_s, "encode_phases": phases_a,
+         "launches_k1": launches[0], "launches_k2": launches[1],
+         "sha256": hashlib.sha256(stream_a).hexdigest(),
+         "identical_to_encode_image": True, "decode_s": dec_s, "decode_peak_device_gb": dec_peak,
+         "decode_log": got_a, "psnr_equal_to_decode_phase": True, "csv_row": rows[1],
+         "resume_s": again_s, "resume_launches": again}
+
+    # (b) --bucket on the top-left crop (1900x2000: bucket 2048x2048, 10 x
+    # 512 launches bucketed, 10 x 464 exact)
+    t0 = time.time()
+    crop = np.ascontiguousarray(img[:, : crop_hw[0], : crop_hw[1]])
+    crop_path = tif("crop", crop)
+    bucket = bucket_dims(*crop_hw, 2)
+    b = {"shape": list(crop.shape), "bucket": list(bucket)}
+    for name, flags, want in (("bucketed", ["--bucket"], steps(*bucket)),
+                              ("exact", [], steps(*crop_hw))):
+        run_dir, stream, secs, launches, phases = encode(crop_path, os.path.join(tmp, name),
+                                                         *flags)
+        assert launches == [want, 0], (name, launches, want)
+        got, _, dsecs, _ = decode(run_dir, crop_path, crop)
+        b[name] = {"encode_s": secs, "encode_phases": phases, "launches_k1": launches[0],
+                   "psnr_db": got["psnr"], "bpsp": got["bpsp"], "decode_s": dsecs,
+                   "sha256": hashlib.sha256(stream).hexdigest()}
+        k1["launches_by_path"][f"cli_crop_{name}"] = launches[0]
+    b["psnr_diff_db"] = b["bucketed"]["psnr_db"] - b["exact"]["psnr_db"]
+    assert abs(b["psnr_diff_db"]) < 0.1, b
+    b["seconds"] = time.time() - t0
+
+    # (c) coordinate features: with colours (F = 150, F_pad 256) and without
+    # (F = 50, F_pad 128); "cached" staging, the full-plane decode
+    t0 = time.time()
+    c = []
+    for flags in (["--use-coords", "--embedding"],
+                  ["--use-coords", "--embedding", "--no-colors"]):
+        fspec = FeatureSpec(use_coords=True, embedding=True, use_colors="--no-colors" not in flags)
+        F = fspec.feature_dim(C)
+        staging, _ = pick_staging(H, W, C, int(img.max()) >> 5, fspec, train)
+        assert staging == "cached", (flags, staging)
+        rows_cta, staged_w = fs.cta_layout([pad_dim(F), 64, 64, C], fs._smem_optin)
+        out = os.path.join(tmp, "c" + str(len(c)))
+        run_dir, stream, secs, launches, phases = encode(scene, out, *flags)
+        assert launches == [n_steps, 0], (flags, launches)
+        got, rec, dsecs, peak = decode(run_dir, scene, img)
+        assert abs(got["psnr"] - psnr(img, rec)) < 1e-9
+        c.append({"flags": flags, "F": F, "F_pad": pad_dim(F), "staging": staging,
+                  "rows_per_cta": rows_cta, "weights_staged": staged_w, "encode_s": secs,
+                  "encode_phases": phases, "launches_k1": launches[0], "psnr_db": got["psnr"],
+                  "bpsp": got["bpsp"], "decode_s": dsecs, "decode_peak_device_gb": peak,
+                  "sha256": hashlib.sha256(stream).hexdigest()})
+        k1["launches_by_path"]["cli_coords_F%d" % pad_dim(F)] = launches[0]
+    assert [x["F_pad"] for x in c] == [256, 128], c
+    c_s = time.time() - t0
+
+    # (d) a v0 header, a torch.profiler trace of the encode and the build log
+    t0 = time.time()
+    trace_dir = os.path.join(tmp, "trace")
+    run_d, stream_d, secs, launches, phases = encode(scene, os.path.join(tmp, "d"),
+                                                     "--header-version", "0", "--trace",
+                                                     trace_dir, "--compile-log")
+    assert launches == [n_steps, 0], launches
+    compile_line = re.search(r"compile: [\d.]+s backend over \d+ programs",
+                             open(os.path.join(run_d, "encode.txt")).read())
+    assert compile_line, "no compile line in the --compile-log encode's log"
+    assert stream_d[0] != 0xFF and stream_d[header_size(stream_d):] == \
+        stream_a[header_size(stream_a):], "v0 body differs from v1's"
+    got_d, _, dsecs, _ = decode(run_d, scene, img)
+    traces = glob.glob(os.path.join(trace_dir, "*.json"))
+    assert len(traces) == 1, traces
+    text = open(traces[0]).read()
+    named = {k: text.count(k) for k in K1_KERNELS}
+    assert all(named.values()), named
+    d = {"encode_s": secs, "encode_phases": phases, "launches_k1": launches[0],
+         "header_bytes": header_size(stream_d), "body_identical_to_v1": True,
+         "psnr_db": got_d["psnr"], "decode_s": dsecs, "trace_mb": len(text) / 1e6,
+         "trace_kernel_mentions": named, "compile_log_line": compile_line.group(0),
+         "seconds": time.time() - t0}
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cli", "flags": bench, "a_round_trip": a, "b_bucket": b, "c_coords": c,
+          "c_seconds": c_s, "d_v0_trace": d, "total_seconds": time.time() - t_phase})
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels",), default=None)
+    ap.add_argument("--only", choices=("kernels", "cli"), default=None,
+                    help="kernels: the kernel phases only; cli: the encode, decode "
+                         "and rd phases and the cli phase only (no kernels line)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one encode, one sweep, two fits and two GF-2 epochs "
                          "with torch.profiler")
@@ -1331,16 +1556,27 @@ def main():
                           if any(w in ln for w in ("entry function", "registers", "spill"))]
                     for src in sources}})
 
+    if args.only == "cli":
+        k1 = {"launches_by_path": {}}
+        encoded = phase_codec(args.profile, k1)
+        from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+        phase_cli(k1, encoded, synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42))
+        emit({"k1_launches_by_path": k1["launches_by_path"]})
+        return
     k1 = phase_kernels(card)
     k2 = phase_expert_kernels(card)
     k3, k4 = phase_multi_kernels(card)
     phase_mm_dtype(card, fits=args.only != "kernels")
     k5 = phase_kernel_prof(card)
     if args.only != "kernels":
-        phase_codec(args.profile, k1)
+        encoded = phase_codec(args.profile, k1)
         phase_sweep(args.profile, k2)
         phase_multi_k(card, args.profile, k3, k4)
         phase_staging(args.profile, k1, k2)
+        from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+        phase_cli(k1, encoded, synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42))
     emit({"kernels": [k1, k2, k3, k4, *k5]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

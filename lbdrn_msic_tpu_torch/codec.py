@@ -21,7 +21,12 @@ import numpy as np
 import torch
 
 from lbdrn_msic_tpu_torch import resolve_device
-from lbdrn_msic_tpu_torch.codecs.base_layer import decode_base, encode_base
+from lbdrn_msic_tpu_torch.codecs.base_layer import (
+    decode_base,
+    encode_base,
+    payload_codec,
+    require_cv2,
+)
 from lbdrn_msic_tpu_torch.codecs.weights import compress_weights, decompress_weights
 from lbdrn_msic_tpu_torch.core.config import CodecConfig
 from lbdrn_msic_tpu_torch.features.engine import (
@@ -60,6 +65,7 @@ class TileStats:
     base_time: float
     staging: str = "cached"  # how the training batches were built
     staged_bytes: int = 0  # their staging buffers' device bytes (a sweep: its group's)
+    step_losses: Optional[np.ndarray] = None  # (epochs, steps), with collect_curves
 
 
 @dataclasses.dataclass
@@ -156,6 +162,43 @@ def pick_staging(H, W, C, max_msb, fspec, tspec):
     return "gather", tap_dt
 
 
+BUCKET_SMALL_Q, BUCKET_LARGE_Q = 128, 512
+
+
+def bucket_dims(H: int, W: int, D: int = 0) -> tuple[int, int]:
+    """Canonical bucket shape for (H, W), as the JAX package buckets: each
+    dimension rounds up to a multiple of 128 (up to 1024) or of 512
+    (above), so tiles of many shapes train at a few (7340x7815 and
+    7605x7815 share 7680x8192; 6000^2 becomes 6144^2).  A dimension that
+    would be padded by fewer than D takes the next step up, so that every
+    real pixel's window sees the reflect pad of its own shape
+    (`_pad_to_bucket`)."""
+    def up(x: int) -> int:
+        q = BUCKET_SMALL_Q if x <= 1024 else BUCKET_LARGE_Q
+        b = -(-x // q) * q
+        if b != x and b - x < D:
+            b += q
+        return b
+
+    return up(H), up(W)
+
+
+def _pad_to_bucket(tile: np.ndarray, D: int, Hb: int, Wb: int) -> np.ndarray:
+    """Pad (C, H, W) to (C, Hb, Wb): the first D rows and columns past each
+    edge reflect the image, so every real pixel's (2D+1)^2 window reads what
+    the reflect pad of the real shape (`features/engine.pad_plane`) gives
+    it, corner included; the rest repeats the edge (never read by a real
+    pixel's window, masked out of every batch, and max() is unchanged, so
+    the plane's scale is too)."""
+    C, H, W = tile.shape
+    dh, dw = Hb - H, Wb - W
+    rh, rw = min(D, dh, H - 1), min(D, dw, W - 1)
+    out = np.pad(tile, ((0, 0), (0, rh), (0, rw)), mode="reflect")
+    if dh > rh or dw > rw:
+        out = np.pad(out, ((0, 0), (0, dh - rh), (0, dw - rw)), mode="edge")
+    return out
+
+
 def _prepare_tile(img: torch.Tensor, K: int, D: int):
     """Training prep on the device: MSB/LSB split, reflect pad + scale."""
     msb, lsb = split_msb_lsb(img, K)
@@ -177,19 +220,44 @@ def _msb_plane(tile: np.ndarray, K: int) -> np.ndarray:
 
 
 def _train_tile(tile: np.ndarray, cfg: CodecConfig, generator: torch.Generator,
-                device: torch.device, use_fused: Optional[bool] = None):
-    """Train one tile's network; returns (flat_fn, fit_result)."""
+                device: torch.device, use_fused: Optional[bool] = None,
+                bucket: bool = False):
+    """Train one tile's network; returns (flat_fn, fit_result).
+
+    `bucket=True` pads the tile up to its bucket (`bucket_dims`, pad by
+    `_pad_to_bucket`) and trains at the bucket's shape with the real (H, W)
+    masked in (`fit(hw=)`): RD-equivalent to the exact-shape fit, not
+    byte-identical.  It applies to colour features without coordinates
+    (coordinates are normalized by the shape); other configs train at the
+    exact shape, with a RuntimeWarning.
+    """
     C, H, W = tile.shape
     fspec = cfg.features
+    hw = None
+    dev_tile = tile
+    if bucket and not (fspec.use_colors and not fspec.use_coords):
+        warnings.warn(
+            "bucket=True requested but shape bucketing applies only to "
+            "colors/no-coords feature configs (coords features normalize by "
+            "the static H/W) — training exact-shape.",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+    elif bucket:
+        Hb, Wb = bucket_dims(H, W, fspec.D)
+        if (Hb, Wb) != (H, W):
+            dev_tile = _pad_to_bucket(tile, fspec.D, Hb, Wb)
+            hw = (H, W)
+            H, W = Hb, Wb
     max_msb = int(tile.max()) >> cfg.K
     staging, tap_dtype = pick_staging(H, W, C, max_msb, fspec, cfg.train)
-    dev = put_image(tile, device)
+    dev = put_image(dev_tile, device)
     plane, plane_scale, labels = _prepare_tile(dev, cfg.K, fspec.D)
     label_scale = float(np.float32(lsb_scale(cfg.K)))
     result = fit(
         plane, plane_scale, labels, label_scale, generator,
         fspec, cfg.model, cfg.train, H, W, C,
-        staging=staging, tap_dtype=tap_dtype, use_fused=use_fused, device=device,
+        staging=staging, tap_dtype=tap_dtype, use_fused=use_fused, hw=hw, device=device,
     )
 
     def flat_fn():
@@ -204,6 +272,9 @@ def encode_image(
     seed: Optional[int] = None,
     use_fused: Optional[bool] = None,
     device=None,
+    header_version: int = 1,
+    collect_curves: bool = False,
+    bucket: bool = False,
 ) -> tuple[bytes, EncodeStats]:
     """img: (C, H, W) uint16 -> (bitstream, stats).
 
@@ -212,8 +283,16 @@ def encode_image(
     on CUDA) trains with the fused-step kernel, else with the exact
     autograd step.  The host base-layer codec of a tile runs in a worker
     thread while the device trains; tiles run one after another.
+
+    `header_version`: 1 (default) or 0, the reference's header layout (the
+    body after it is the same).  `collect_curves`: each tile's per-step
+    losses land in `TileStats.step_losses`.  `bucket`: train each tile at
+    its bucket's shape (`_train_tile`); RD-equivalent, not byte-identical,
+    to the exact-shape encode.
     """
     device = resolve_device(device)
+    if cfg.base_codec == "jp2":
+        require_cv2()  # fail before training, not after it
     if img.ndim == 2:
         img = img[None]
     C, H, W = img.shape
@@ -229,7 +308,7 @@ def encode_image(
                     lambda t=tile: encode_base(_msb_plane(t, cfg.K), cfg.base_codec)
                 )
                 flat_fn, result = _train_tile(
-                    tile, cfg, tile_generator(seed, tile_idx), device, use_fused
+                    tile, cfg, tile_generator(seed, tile_idx), device, use_fused, bucket
                 )
             with timer.phase("train_wait"):
                 flat = flat_fn()  # blocks on the device result
@@ -250,12 +329,13 @@ def encode_image(
                 base_time=t3 - t2,
                 staging=result.staging,
                 staged_bytes=result.staged_bytes,
+                step_losses=result.step_losses.cpu().numpy() if collect_curves else None,
             ))
     header = header_from_config(
         cfg, W, H,
         [len(s) for s in nn_streams],
         [len(s) for s in base_streams],
-        version=1,
+        version=header_version,
     )
     out = bytearray(encode_header(header))
     for nn, base in zip(nn_streams, base_streams):
@@ -284,6 +364,8 @@ def _experts_compatible(cfgs: List[CodecConfig]) -> bool:
         and c.weight_codec == c0.weight_codec
         and c.base_codec == c0.base_codec
         and c.features.use_colors
+        # the expert loop has no coordinate features yet: point by point
+        and not c.features.use_coords
         for c in cfgs
     )
 
@@ -420,7 +502,9 @@ def _dispatch_decode(data: bytes, pt: PhaseTimer, device: torch.device):
         base_stream = data[ptr : ptr + header.base_bytes[t]]
         ptr += header.base_bytes[t]
         with pt.phase("base_decode"):
-            base = decode_base(base_stream, header.base_codec)
+            # a v0 header has no codec field: the payload's magic names it
+            codec_name = header.base_codec if header.version else payload_codec(base_stream)
+            base = decode_base(base_stream, codec_name)
         C = base.shape[0]
         with pt.phase("dispatch"):
             flat = decompress_weights(nn, header.weight_codec)

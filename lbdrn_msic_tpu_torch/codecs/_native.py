@@ -1,6 +1,7 @@
 """ctypes loader for the native host codec library.
 
-Compiles the C++ sources shipped in `codecs/native/` with `g++` into the
+Compiles the C++ sources shipped in `codecs/native/` (the weight and base
+codecs, the residual assembly, the TIFF chunk decoders) with `g++` into the
 package's build directory (`lbdrn_msic_tpu_torch/_build/`, git-ignored) on
 first use; the source tree itself is never written.  Concurrent first uses
 (several test processes) each compile to a private temporary file and
@@ -18,12 +19,13 @@ import ctypes
 import os
 import subprocess
 import threading
+import time
 
-from lbdrn_msic_tpu_torch.ops._build import build_stamp, compile_into, is_current
+from lbdrn_msic_tpu_torch.ops._build import build_stamp, compile_into, is_current, log_build
 
 _DIR = os.path.join(os.path.dirname(__file__), "native")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-SOURCES = ("fpzcodec.cc", "lpc.cc", "assemble.cc")
+SOURCES = ("fpzcodec.cc", "lpc.cc", "assemble.cc", "tiffcodecs.cc")
 _HEADERS = ("rangecoder.h",)
 _FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread")
 _lock = threading.Lock()
@@ -35,11 +37,16 @@ load_error = None  # why the last load() returned None
 def build(force: bool = False) -> str:
     """Compile the library unless one with the current stamp is there (or
     `force`); returns its path.  Raises on a compiler failure."""
+    t0 = time.time()
     so = os.path.join(BUILD_DIR, "liblbdrn_native.so")
     stamp = build_stamp("g++", _FLAGS, [os.path.join(_DIR, f) for f in SOURCES + _HEADERS])
-    if force or not is_current(so, stamp):
-        compile_into(so, ["g++", *_FLAGS, *[os.path.join(_DIR, f) for f in SOURCES]],
-                     stamp, timeout=300)
+    rebuilt = force or not is_current(so, stamp)
+    out = ""
+    if rebuilt:
+        out = compile_into(so, ["g++", *_FLAGS, *[os.path.join(_DIR, f) for f in SOURCES]],
+                           stamp, timeout=300)
+    log_build("lbdrn_native", "codecs/native/" + ",".join(SOURCES), time.time() - t0,
+              rebuilt, out)
     return so
 
 
@@ -101,6 +108,10 @@ def load():
             u8p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_uint16), ctypes.c_uint64,
         ]
+        for name in ("lbdrn_lzw_decode", "lbdrn_packbits_decode"):
+            fn = getattr(lib, name)
+            fn.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
+            fn.restype = ctypes.c_int64
         lib.lbdrn_assemble_residual.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int,

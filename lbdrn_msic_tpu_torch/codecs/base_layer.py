@@ -38,10 +38,24 @@ def _band_groups(c: int) -> List[int]:
     return [1] * c
 
 
+def require_cv2():
+    """The cv2 module, or an ImportError that says what to do instead: the
+    jp2 base codec is OpenCV's OpenJPEG binding, and the native ``lpc``
+    coder needs nothing."""
+    try:
+        import cv2
+    except ImportError as exc:
+        raise ImportError(
+            "the jp2 base codec needs OpenCV (the cv2 module), which is not "
+            "installed; encode with --base-codec lpc (base_codec='lpc') instead"
+        ) from exc
+    return cv2
+
+
 def _encode_jp2(msb: np.ndarray) -> bytes:
     import concurrent.futures
 
-    import cv2
+    cv2 = require_cv2()
 
     c, h, w = msb.shape
     groups = _band_groups(c)
@@ -79,7 +93,7 @@ def _encode_jp2(msb: np.ndarray) -> bytes:
 
 
 def _decode_jp2(data: bytes) -> np.ndarray:
-    import cv2
+    cv2 = require_cv2()
 
     if data[:8] in (b"\x00\x00\x00\x0cjP  ", b"\x00\x00\x00\x0cjP\x1a\x1a") or data[:4] == b"\xff\x4f\xff\x51":
         # a bare JP2 file / J2K codestream: the reference stores the base
@@ -143,6 +157,12 @@ def encode_base(msb: np.ndarray, codec: str = "jp2") -> bytes:
         chunk = LPC_CHUNK_ROWS if msb.shape[1] >= LPC_CHUNK_MIN_H else 0
         return lpc.encode(msb, chunk_rows=chunk)
     raise ValueError(f"unknown base codec {codec!r}")
+
+
+def payload_codec(data: bytes) -> str:
+    """The base codec a payload was written with, from its magic: what a
+    v0 header, which has no codec field, leaves to the payload."""
+    return "lpc" if data[:4] == _LPC_MAGIC else "jp2"
 
 
 def decode_base(data: bytes, codec: str = "jp2") -> np.ndarray:

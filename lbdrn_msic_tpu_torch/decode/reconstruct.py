@@ -4,9 +4,12 @@ Mirrors the reference decoder's math (reference decode.py:77-139): rebuild
 the exact feature tensor from the decoded base plane, run the MLP with
 exact `sin`, then ``residual = round(pred * (2^K - 1))`` and
 ``image = (base << K) + residual`` in uint16.  The device computes the
-residual of each row band (the base uploaded band by band with its D-row
-halo) and returns it as K bitplanes; the host, which already holds the
-base, adds it back (`_assemble_band`).
+residual of each row band and returns it as K bitplanes; the host, which
+already holds the base, adds it back (`_assemble_band`).  Colour-only
+streams upload the base band by band with its D-row halo
+(`_residual_band_planes_local`); streams with coordinate features, which
+need each pixel's global row, upload the whole base once
+(`_residual_band_planes`).
 """
 
 from __future__ import annotations
@@ -19,11 +22,33 @@ import torch
 
 from lbdrn_msic_tpu_torch.codecs import _native
 from lbdrn_msic_tpu_torch.core.config import FeatureSpec, ModelSpec
-from lbdrn_msic_tpu_torch.features.engine import reflect_index, row_block_features
+from lbdrn_msic_tpu_torch.features.engine import pad_plane, reflect_index, row_block_features
 from lbdrn_msic_tpu_torch.models.siren import SirenParams, forward, pad_dim, pad_features
 from lbdrn_msic_tpu_torch.utils.transfer import put_image
 
 N_PLANES = 16  # residual bitplane slots (covers any K; planes >= K are zero)
+
+
+def _residual_band_planes(plane: torch.Tensor, scale: torch.Tensor, params: SirenParams,
+                          r0: int, fspec: FeatureSpec, mspec: ModelSpec, K: int, H: int,
+                          W: int, band_rows: int) -> torch.Tensor:
+    """Residual bitplanes of the row band [r0, r0 + band_rows) from the
+    whole padded base plane (`pad_plane` of the full tile: (C, H+2D, W+2D)
+    int32, `scale` its 1/max), so each block's features read global row
+    indices, as coordinate features need.  Returns the K live bitplanes,
+    (K, ceil(n/8)) uint8 in np.unpackbits order."""
+    C = plane.shape[0]
+    padded_in = pad_dim(fspec.feature_dim(C))
+    R = min(256, band_rows)
+    lsb_peak = float(np.float32((1 << K) - 1))
+    out = torch.empty((C, band_rows, W), dtype=torch.int32, device=plane.device)
+    for b in range(-(-band_rows // R)):
+        rb = min(r0 + b * R, H - R)
+        x = row_block_features(plane, scale, rb, fspec, H, W, R)
+        pred = forward(params, pad_features(x, padded_in), mspec)
+        residual = torch.round(pred * lsb_peak).to(torch.int32)
+        out[:, rb - r0 : rb - r0 + R] = residual.reshape(R, W, C).permute(2, 0, 1)
+    return _pack_bitplanes(out, K)
 
 
 def _residual_band_planes_local(band: torch.Tensor, params: SirenParams,
@@ -96,13 +121,22 @@ def dispatch_streamed(base: np.ndarray, params: SirenParams, fspec: FeatureSpec,
                       mspec: ModelSpec, K: int, device: torch.device, n_bands: int = 8):
     """Queue the residual computation of every row band of one tile on the
     device (asynchronous on CUDA) and return a zero-arg closure that fetches
-    the bands and assembles the final uint16 image on the host.  Each band
-    is uploaded with its host-built halo (`_band_halo`)."""
+    the bands and assembles the final uint16 image on the host.  Colour-only
+    feature sets upload each band with its host-built halo (`_band_halo`);
+    coordinate features need global row indices, so their base goes up
+    whole, once, and every band reads it (`_residual_band_planes`)."""
     C, H, W = base.shape
     n_bands, band_rows = _band_layout(H, n_bands)
+    pend = []
+    if fspec.use_coords:
+        plane, scale = pad_plane(put_image(base, device), fspec.D)
+        for b in range(n_bands):
+            r0 = min(b * band_rows, H - band_rows)
+            pend.append((r0, _residual_band_planes(plane, scale, params, r0, fspec, mspec,
+                                                   K, H, W, band_rows)))
+        return _make_finish(base, pend, band_rows, K)
     scale = torch.tensor(np.float32(1.0) / np.float32(max(int(base.max()), 1)),
                          device=device)
-    pend = []
     for b in range(n_bands):
         r0 = min(b * band_rows, H - band_rows)
         band = put_image(_band_halo(base, r0, band_rows, fspec.D), device)

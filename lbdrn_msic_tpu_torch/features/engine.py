@@ -9,7 +9,10 @@ has few uint16 ops).
 Feature vector layout per pixel (the reference's ``sliding_window_view``
 order, LBDRNdataset.py:119-129): ``[band0: (2D+1)^2 taps row-major, band1:
 ..., ...]`` with taps optionally center-subtracted (RELATIVE) and
-max-normalized.  Coordinate features are not ported yet.
+max-normalized.  With ``use_coords`` the coordinate features come first
+(`_coord_features`: per axis ``[p, sin(sigma^k pi p)_k, cos(...)_k]``, p
+the row or column normalized to [-1, 1] by the tile's H and W), then the
+colour taps.
 
 Training batches come from one of four staging modes, largest first:
 "cached", every pixel's final f32 model input row (`build_feature_cache`),
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from lbdrn_msic_tpu_torch.core.config import FeatureSpec
@@ -73,6 +77,35 @@ def pad_plane(msb: torch.Tensor, D: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return plane, scale
 
 
+def _coord_features(ii: torch.Tensor, jj: torch.Tensor, H: int, W: int,
+                    spec: FeatureSpec) -> torch.Tensor:
+    """Normalized coordinates in [-1, 1] plus, with ``spec.embedding``, their
+    sin/cos embedding (reference LBDRNdataset.py:108-117), in float32 as the
+    JAX package computes them.  ii, jj: integer tensors of one shape;
+    returns (..., num_coord_features), per axis ``[p, sin(sigma^k*pi*p)_k,
+    cos(sigma^k*pi*p)_k]``."""
+    ph = 2.0 * ii.to(torch.float32) / (H - 1) - 1.0
+    pw = 2.0 * jj.to(torch.float32) / (W - 1) - 1.0
+    coords = torch.stack([ph, pw], dim=-1)  # (..., 2)
+    if not spec.embedding:
+        return coords
+    freqs = (spec.sigma ** np.arange(spec.n_freq)).astype(np.float32) * np.float32(np.pi)
+    scaled = coords[..., None] * torch.from_numpy(freqs).to(coords.device)
+    parts = torch.cat([coords[..., None], torch.sin(scaled), torch.cos(scaled)], dim=-1)
+    return parts.reshape(*coords.shape[:-1], -1)
+
+
+def _with_coords(coords: torch.Tensor | None, colors, out: torch.Tensor | None):
+    """[coords, colors] along the last axis, or `out` once its leading
+    coordinate columns are written (the colours already in the rest)."""
+    if coords is None:
+        return colors
+    if out is not None:
+        out[..., : coords.shape[-1]] = coords
+        return out
+    return coords if colors is None else torch.cat([coords, colors], dim=-1)
+
+
 def _block_taps_int(plane: torch.Tensor, r0: int, spec: FeatureSpec, W: int, R: int):
     """(R*W, C*side^2) int32 taps (center-subtracted if RELATIVE) for R rows."""
     D = spec.D
@@ -90,15 +123,15 @@ def _block_taps_int(plane: torch.Tensor, r0: int, spec: FeatureSpec, W: int, R: 
 def row_block_features(plane, scale, r0: int, spec: FeatureSpec, H: int, W: int,
                        block_rows: int) -> torch.Tensor:
     """Slice path: features for `block_rows` contiguous rows from r0
-    (r0 <= H - block_rows).  Returns (block_rows * W, feature_dim) f32.
-    Colors-only feature sets (the reference default)."""
-    if spec.use_coords or not spec.use_colors:
-        raise NotImplementedError(
-            "coordinate features are not ported yet (ROADMAP: pipelined "
-            "encode/decode and the full-plane decode)"
-        )
-    taps = _block_taps_int(plane, r0, spec, W, block_rows)
-    return taps.to(torch.float32) * scale
+    (r0 <= H - block_rows).  Returns (block_rows * W, feature_dim) f32."""
+    coords = colors = None
+    if spec.use_coords:
+        ii = torch.arange(r0, r0 + block_rows, device=plane.device)[:, None].expand(-1, W)
+        jj = torch.arange(W, device=plane.device).expand(block_rows, -1)
+        coords = _coord_features(ii, jj, H, W, spec).reshape(block_rows * W, -1)
+    if spec.use_colors:
+        colors = _block_taps_int(plane, r0, spec, W, block_rows).to(torch.float32) * scale
+    return _with_coords(coords, colors, None)
 
 
 def feature_block_rows(H: int, W: int) -> int:
@@ -124,17 +157,16 @@ def gather_features(plane, scale, pixel_idx: torch.Tensor, spec: FeatureSpec, H:
     """Gather path ("gather" staging: nothing staged): features of flat
     pixel ids (clipped to the image), each window's taps gathered from the
     padded plane (C, H+2D, W+2D).  Returns (B, feature_dim) f32, or writes
-    into `out` as `_write_features` does."""
-    if spec.use_coords or not spec.use_colors:
-        raise NotImplementedError(
-            "coordinate features are not ported yet (ROADMAP: pipelined "
-            "encode/decode and the full-plane decode)"
-        )
+    into `out` (B, feature_dim) as `_write_features` does."""
+    idx = torch.clamp(pixel_idx, 0, H * W - 1)
+    coords = _coord_features(idx // W, idx % W, H, W, spec) if spec.use_coords else None
+    if not spec.use_colors:
+        return _with_coords(coords, None, out)
+    nc = spec.num_coord_features()
     C = plane.shape[0]
     D = spec.D
     side = 2 * D + 1
     Wp = W + 2 * D
-    idx = torch.clamp(pixel_idx, 0, H * W - 1)
     base = idx // W * Wp + idx % W  # the window's top-left corner, padded coords
     offs = (torch.arange(side, device=idx.device)[:, None] * Wp
             + torch.arange(side, device=idx.device)).view(-1)
@@ -142,7 +174,8 @@ def gather_features(plane, scale, pixel_idx: torch.Tensor, spec: FeatureSpec, H:
     taps = plane.reshape(C, -1)[:, win].view(C, -1, side, side).permute(1, 0, 2, 3)
     if spec.relative and D > 0:
         taps = taps - taps[:, :, D : D + 1, D : D + 1]
-    return _write_features(taps[:, None], scale, 1, out)
+    colors = _write_features(taps[:, None], scale, 1, None if out is None else out[..., nc:])
+    return _with_coords(coords, colors, out)
 
 
 def row_taps_dtype(max_value: int) -> torch.dtype:
@@ -186,12 +219,8 @@ def banded_window_features(row_taps: torch.Tensor, scale, gidx: torch.Tensor,
     """Banded path: features of granule ids over the W-padded grid, gidx in
     [0, H * ng_row).  Returns (m * g, feature_dim) f32, or writes into
     `out` as `_write_features` does; padding columns (j >= W) give zero-tap
-    rows, which callers mask."""
-    if spec.use_coords or not spec.use_colors:
-        raise NotImplementedError(
-            "coordinate features are not ported yet (ROADMAP: pipelined "
-            "encode/decode and the full-plane decode)"
-        )
+    rows, which callers mask.  Coordinates (first, with ``use_coords``) are
+    those of the granule's pixels, padding columns included."""
     D = spec.D
     side = 2 * D + 1
     _, ng_row = banded_geometry(W, g)
@@ -204,7 +233,14 @@ def banded_window_features(row_taps: torch.Tensor, scale, gidx: torch.Tensor,
     if spec.relative and D > 0:
         taps = taps.to(torch.int32)
         taps = taps - taps[:, :, :, D : D + 1, D : D + 1]
-    return _write_features(taps, scale, g, out)
+    coords = None
+    if spec.use_coords:
+        jj = (gidx % ng_row * g)[:, None] + torch.arange(g, device=gidx.device)
+        ii = (gidx // ng_row)[:, None].expand(-1, g)
+        coords = _coord_features(ii.reshape(-1), jj.reshape(-1), H, W, spec)
+    nc = spec.num_coord_features()
+    colors = _write_features(taps, scale, g, None if out is None else out[..., nc:])
+    return _with_coords(coords, colors, out)
 
 
 def build_feature_cache(plane, scale, spec: FeatureSpec, H: int, W: int,
@@ -242,12 +278,9 @@ def build_tap_matrix(plane, spec: FeatureSpec, H: int, W: int,
     """Every pixel's integer taps (center-subtracted if RELATIVE), in flat
     g-pixel granules: (ceil(H*W/g), g * C*(2D+1)^2) `dtype`; trailing pixels
     of the last granule are zero.  Built in row blocks with the slice path
-    into the (rows, taps) matrix, whose granule view is free."""
-    if spec.use_coords or not spec.use_colors:
-        raise NotImplementedError(
-            "coordinate features are not ported yet (ROADMAP: pipelined "
-            "encode/decode and the full-plane decode)"
-        )
+    into the (rows, taps) matrix, whose granule view is free.  Colour taps
+    only: batches add coordinates from the pixel index
+    (`staged_features`)."""
     C = plane.shape[0]
     F = C * (2 * spec.D + 1) ** 2
     n_g = -(-H * W // g)
@@ -260,16 +293,28 @@ def build_tap_matrix(plane, spec: FeatureSpec, H: int, W: int,
 
 
 def staged_features(taps: torch.Tensor, scale: torch.Tensor, idx: torch.Tensor,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """Staged path: rows `idx` of a tap matrix as f32 times `scale`, the
-    values of `row_block_features` for those pixels (or granules).  `out`:
-    an f32 view of the same number of elements (say the first F columns of
-    a zero-padded batch buffer) that the rows are written into."""
+                    out: torch.Tensor | None = None, spec: FeatureSpec | None = None,
+                    H: int = 0, W: int = 0, g: int = 1) -> torch.Tensor:
+    """Staged path: rows `idx` of a tap matrix (pixels, or g-pixel
+    granules) as f32 times `scale`, the values of `row_block_features` for
+    those pixels.  `out`: an f32 view of the same number of elements (say
+    the first F columns of a zero-padded batch buffer) that the rows are
+    written into.  With `spec.use_coords` (`spec`, H, W and g given), each
+    pixel's coordinates come first, computed from its index ``idx*g + t``
+    (pixels past the image get coordinates past the edge; callers mask
+    them); the result is then (len(idx) * g, feature_dim)."""
     rows = torch.index_select(taps, 0, idx)
+    coords = None
+    if spec is not None and spec.use_coords:
+        pix = (idx[:, None] * g + torch.arange(g, device=idx.device)).reshape(-1)
+        coords = _coord_features(pix // W, pix % W, H, W, spec)
     if out is None:
-        return rows.to(torch.float32) * scale
-    out.copy_(rows.view(out.shape))
-    return out.mul_(scale)
+        x = rows.to(torch.float32) * scale
+        return x if coords is None else _with_coords(coords, x.view(coords.shape[0], -1), None)
+    o = out if coords is None else out[..., coords.shape[-1]:]
+    o.copy_(rows.view(o.shape))
+    o.mul_(scale)
+    return _with_coords(coords, o, out)
 
 
 def build_label_matrix(lsb: torch.Tensor, pad_rows_to: int | None = None) -> torch.Tensor:

@@ -36,7 +36,16 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict = {}
-build_log: dict = {}  # source name -> {"seconds": s, "ptxas": text}
+# library name -> {"source": path in the package, "seconds": s of the last
+# build() call, "rebuilt": compiled (True) or loaded from its stamp (False),
+# "ptxas": the compiler's output of a rebuild}
+build_log: dict = {}
+
+
+def log_build(name: str, source: str, seconds: float, rebuilt: bool, output: str = "") -> None:
+    """Record one library's build() call in `build_log`."""
+    build_log[name] = {"source": source, "seconds": seconds, "rebuilt": rebuilt,
+                       "ptxas": output}
 
 
 def nvcc() -> str:
@@ -96,16 +105,18 @@ def build(name: str, force: bool = False) -> str:
     """Compile csrc/<name>.cu to _build/lib<name>.so unless a library with
     the current stamp is there (or `force`); returns the library path.
     Raises with the compiler output on failure."""
+    t0 = time.time()
     src = os.path.join(CSRC, name + ".cu")
     so = os.path.join(BUILD_DIR, f"lib{name}.so")
     inputs = [src] + [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
     compiler = nvcc()
     stamp = build_stamp(compiler, NVCC_FLAGS, inputs)
+    source = os.path.relpath(src, PKG_DIR)
     if not force and is_current(so, stamp):
+        log_build(name, source, time.time() - t0, False)
         return so
-    t0 = time.time()
     out = compile_into(so, [compiler, *NVCC_FLAGS, src], stamp, timeout=600)
-    build_log[name] = {"seconds": time.time() - t0, "ptxas": out}
+    log_build(name, source, time.time() - t0, True, out)
     return so
 
 

@@ -34,7 +34,7 @@ the JAX package's init params and permutations instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -117,22 +117,32 @@ def make_lr_schedule(tspec: TrainSpec, steps_per_epoch: int) -> Callable[[int], 
 
 def blocks_mse(params: SirenParams, x_rows: Callable, y_rows: Callable,
                mspec: ModelSpec, H: int, W: int, C: int, block_rows: int,
-               fast_act: bool = False) -> torch.Tensor:
+               fast_act: bool = False, hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Full-image MSE over row blocks of R = `block_rows` image rows.
 
     x_rows(r0) / y_rows(r0): the (R*W, padded_in) f32 model inputs and the
     (R*W, C) f32 scaled labels of rows r0..r0+R.  Blocks start at
     min(b*R, H-R); rows a clamped block re-reads are masked, as in the JAX
-    package.  Returns a 0-d f32 tensor."""
+    package.  `hw`: the real (height, width) of a bucket-padded tile (H, W
+    the bucket's): pixels at row >= hw[0] or column >= hw[1] are left out
+    and the SSE is normalized by the real pixel count, in float32 as the
+    JAX package forms it.  Returns a 0-d f32 tensor."""
     R = block_rows
     sse = 0.0
     for b in range(-(-H // R)):
+        if hw is not None and b * R >= hw[0]:
+            break  # every later row is padding
         r0 = min(b * R, H - R)
         pred = forward(params, x_rows(r0), mspec, fast_act=fast_act)
         skip = b * R - r0  # leading rows already counted by block b-1
         err = (pred - y_rows(r0)) ** 2
-        sse = sse + err[skip * W :].sum()
-    return sse / (H * W * C)
+        if hw is None:
+            sse = sse + err[skip * W :].sum()
+        else:
+            sse = sse + err.view(R, W, C)[skip : hw[0] - r0, : hw[1]].sum()
+    if hw is None:
+        return sse / (H * W * C)
+    return sse / float(np.float32(hw[0]) * np.float32(hw[1]) * np.float32(C))
 
 
 def dataset_mse(params: SirenParams, x_cache: torch.Tensor, labels: torch.Tensor,
@@ -201,33 +211,41 @@ def _chunks(steps: int, k: int):
 
 
 def _epoch_batches(epoch: int, perms, generator, geo: Geometry, H: int, W: int,
-                   dev: torch.device):
+                   dev: torch.device, hw: Optional[Tuple[int, int]] = None):
     """This epoch's permutation (injected, else drawn from `generator`),
-    padded to whole batches -> (granule ids (steps, bpg), masks (steps, bs))."""
+    padded to whole batches -> (granule ids (steps, bpg), masks (steps, bs));
+    `hw` as `_granule_batches` takes it."""
     if perms is not None:
         perm = torch.from_numpy(np.array(perms[epoch], dtype=np.int64))
     else:
         perm = torch.randperm(geo.n_g, generator=generator)
     pad = torch.full((geo.steps * geo.bpg - geo.n_g,), geo.n_g, dtype=torch.int64)
     perm = torch.cat([perm, pad]).view(geo.steps, geo.bpg).to(dev)
-    return _granule_batches(perm, geo.n_g, H * W, geo.g, geo.steps, geo.ng_row, W)
+    return _granule_batches(perm, geo.n_g, H * W, geo.g, geo.steps, geo.ng_row, W, hw)
 
 
 def _granule_batches(perm: torch.Tensor, n_g: int, n: int, g: int, steps: int,
-                     ng_row: int = 0, W: int = 0):
+                     ng_row: int = 0, W: int = 0, hw: Optional[Tuple[int, int]] = None):
     """(steps, bs//g) padded permutation -> (clipped granule ids, (steps, bs)
     f32 masks): padding ids n_g are masked, and pixels past n on a flat
     grid, or the padding columns (j >= W) of a banded grid (`ng_row`
-    granules a row)."""
+    granules a row); with `hw` (the real height and width of a
+    bucket-padded tile), every pixel at row >= hw[0] or column >= hw[1]."""
     gvalid = perm < n_g
     gi = torch.clamp(perm, max=n_g - 1)
-    if g == 1:
+    if g == 1 and hw is None:
         return gi, gvalid.to(torch.float32)
     t = torch.arange(g, device=perm.device)
     if ng_row:
-        valid = (gi % ng_row * g)[:, :, None] + t < W
+        cols = (gi % ng_row * g)[:, :, None] + t
+        valid = cols < W
+        if hw is not None:
+            valid = valid & (cols < hw[1]) & ((gi // ng_row)[:, :, None] < hw[0])
     else:
-        valid = gi[:, :, None] * g + t < n
+        pix = gi[:, :, None] * g + t
+        valid = pix < n
+        if hw is not None:
+            valid = valid & (pix // W < hw[0]) & (pix % W < hw[1])
     valid = gvalid[:, :, None] & valid
     return gi, valid.reshape(steps, -1).to(torch.float32)
 
@@ -251,6 +269,7 @@ def fit(
     mm_dtype: Optional[str] = None,
     init: Optional[SirenParams] = None,
     perms: Optional[Sequence[np.ndarray]] = None,
+    hw: Optional[Tuple[int, int]] = None,
     device=None,
 ) -> FitResult:
     """Overfit one network to one image tile.
@@ -280,6 +299,16 @@ def fit(
     chunk's batches built at once; the result is the per-step fit's.
     `mm_dtype` (None or "bfloat16"): the fused steps' product operands, as
     `fused_train_step` takes it; the exact step and the eval ignore it.
+
+    Coordinate features (`fspec.use_coords`) come first in every mode: in
+    the feature cache, from the pixel index in "full" batches, in the
+    banded and gather builders; coordinates only (no colours) train on
+    "cached" or "gather".  The "full" eval then takes the slice path.
+
+    `hw`: the real (height, width) of a tile padded up to its bucket
+    (`codec._pad_to_bucket`), H and W being the bucket's.  Pixels at row
+    >= hw[0] or column >= hw[1] are masked out of every batch in every
+    mode, and the eval's SSE is normalized by the real pixel count.
     """
     if staging not in ("cached", "full", "banded", "gather"):
         raise ValueError(f"unknown staging mode {staging!r}")
@@ -334,13 +363,17 @@ def fit(
             staged = taps
 
             def stage_x(ids):
-                staged_features(taps, plane_scale, ids, out=xbuf[: len(ids) * g, :dim_in])
+                staged_features(taps, plane_scale, ids, out=xbuf[: len(ids) * g, :dim_in],
+                                spec=fspec, H=H, W=W, g=g)
 
-            def x_rows(r0):
+            def tap_rows(r0):
                 xe = xeval[:, :dim_in]
                 xe.copy_(taps.view(-1, dim_in)[r0 * W : (r0 + block_rows) * W])
                 xe.mul_(plane_scale)
                 return xeval
+
+            # the tap matrix holds colours only: with coordinates, the slice path
+            x_rows = slice_rows if fspec.use_coords else tap_rows
         elif staging == "banded":
             row_taps = build_row_taps(plane, fspec, H, W, g,
                                       tap_dtype or row_taps_dtype(int(plane.max())))
@@ -376,7 +409,7 @@ def fit(
         best_mse, best_epoch = np.float32(1e6), -1
         count = 0
         for epoch in range(tspec.epochs):
-            gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev)
+            gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev, hw)
             if k:
                 for s0, kc in _chunks(steps, k):
                     stage(gi[s0 : s0 + kc].reshape(-1))
@@ -401,7 +434,7 @@ def fit(
             elif (epoch + 1) % min(tspec.val_every, tspec.epochs) == 0:
                 mse = float(blocks_mse(params, x_rows,
                                        lambda r0: y_all[r0 * W : (r0 + block_rows) * W],
-                                       mspec, H, W, C, block_rows, fast_act=use_fused))
+                                       mspec, H, W, C, block_rows, fast_act=use_fused, hw=hw))
                 if mse < best_mse:  # strict improvement, one sync per epoch
                     best = params.map(torch.clone)
                     best_mse, best_epoch = mse, epoch + 1
@@ -480,6 +513,9 @@ def fit_rate_experts(
     """
     if staging not in ("full", "banded"):
         raise ValueError(f"unknown staging mode {staging!r}")
+    if fspec.use_coords:
+        raise NotImplementedError(
+            "coordinate features in the rate sweep are not ported yet (ROADMAP: the sweep CLI)")
     if img_of is not None:
         raise NotImplementedError(
             "cross-image experts (img_of) are not ported yet (ROADMAP: encode_dataset)")

@@ -130,6 +130,13 @@ def test_unported_paths_raise(scene, monkeypatch):
     full, _ = codec.encode_image(scene, cfg, device="cpu")
     assert full == cached
     assert np.array_equal(codec.decode_stream(full, device="cpu")[0] >> K, scene >> K)
-    coords = CodecConfig(K=K, features=FeatureSpec(use_coords=True), train=cfg.train)
+    # coordinate features encode (and decode through the full-plane path);
+    # the rate sweep's expert loop still has none
+    coords = CodecConfig(K=K, features=FeatureSpec(use_coords=True), train=cfg.train,
+                         base_codec="lpc")
+    stream, _ = codec.encode_image(scene, coords, device="cpu")
+    assert np.array_equal(codec.decode_stream(stream, device="cpu")[0] >> K, scene >> K)
     with pytest.raises(NotImplementedError):
-        codec.encode_image(scene, coords, device="cpu")
+        codec.fit_rate_experts(torch.from_numpy(scene.astype(np.int32)), [3, K], None,
+                               coords.features, coords.model, coords.train, 64, 64, 4,
+                               device="cpu")

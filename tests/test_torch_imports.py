@@ -38,6 +38,15 @@ PORT_MODULES = [
     "lbdrn_msic_tpu_torch.profiling.step_prof",
     "lbdrn_msic_tpu_torch.profiling.mm_ab",
     "lbdrn_msic_tpu_torch.profiling.mfu_experts",
+    "lbdrn_msic_tpu_torch.io.tiff",
+    "lbdrn_msic_tpu_torch.utils.logging",
+    "lbdrn_msic_tpu_torch.utils.tboard",
+    "lbdrn_msic_tpu_torch.utils.build_log",
+    "lbdrn_msic_tpu_torch.cli",
+    "lbdrn_msic_tpu_torch.cli.common",
+    "lbdrn_msic_tpu_torch.cli.encode",
+    "lbdrn_msic_tpu_torch.cli.decode",
+    "lbdrn_msic_tpu_torch.cli.summarize",
     "chip_smoke",
 ]
 
