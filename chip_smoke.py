@@ -3,10 +3,12 @@
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --only cli   # encode/decode/rd and cli phases only
+    python3 chip_smoke.py --only dataset   # the dataset and sweep_cli phases only
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
                                        # one encode, one sweep, the fit at
-                                       # multi_k 0 and 16, and one epoch of
-                                       # the GF-2 "full" / "banded" encodes
+                                       # multi_k 0 and 16, one epoch of the
+                                       # GF-2 "full" / "banded" encodes and
+                                       # one dataset encode
 
 Phases, one JSON line each (every phase asserts; nothing is caught):
   env      card name and power limit, TF32 switched off
@@ -25,13 +27,19 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
   kernels_experts  K2, the expert step (same source, an expert grid axis),
            at the sweep's shape (E=4, B=8192): against its plain version,
            and bit for bit against K1 on each expert's slices, full,
-           ragged with per-expert masks, and at the wider layer set; time,
-           pass split and design as for K1, bound, plain time
+           ragged with per-expert masks, at the wider layer set, and at the
+           coordinate width (150 -> F_pad 256) with per-expert masks; time,
+           pass split and design as for K1, bound, plain time; time and
+           bound also at E = 8 (`e8`, the dataset cell's) and at F_pad 256
+           (`coords_f256`)
   encode   2048x2048x4 12-bit synthetic scene, seed 42, K=5, g=8, e=10,
            base codec lpc: one warm and three timed encodes, each of which
            must launch K1 exactly epochs x steps = 5120 times (and K2 never)
   determinism  the timed encodes' streams are byte-identical
-  decode   three timed decodes; MSBs exact; PSNR
+  decode   three timed decodes (the base's four row chunks through the
+           streamed lpc path, "dispatch_pipelined"), interleaved with three
+           through the plain path (the whole base decoded, then the band
+           dispatch), bit for bit equal; MSBs exact; PSNR
   rd       fused-kernel encode vs exact-step (use_fused=False) encode of the
            same scene and seed: PSNR within 0.1 dB
   sweep    the rate sweep of the same scene, K in {3, 4, 5, 6}, "full" tap
@@ -100,8 +108,29 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            the torch.profiler trace names K1's kernels, --compile-log logs
            its compile line.  Seconds of each run and each encode log's
            phases
-Then the kernels line (K1-K4, K5 per variant; K1's launches_by_path with
-"cli"), the card line, and the final status line.  Exits non-zero without
+  dataset  the dataset workload (`encode_dataset`), each run with the counts
+           zeroed before it: (a) bench.py's dataset cell, scenes 42 and 43 x K
+           in {3, 4, 5, 6}, one warm and three timed runs, each exactly 5120
+           K2 launches at E = 8 and no K1, deterministic, every stream
+           `encode_image`'s; (b) bucket=True on scene 42 and its 1900x2000
+           crop: one chunk, 5120 K2 launches with (E, B) masks, the crop's
+           streams `encode_image(bucket=True)`'s (else within 0.1 dB); (c)
+           both scenes at K=5: the pipelined path, 2 x 5120 K1 launches,
+           `encode_image`'s bytes, seconds against two `encode_image`
+           calls; (d) a coordinate sweep of scene 42 (F_pad 256): 5120 K2
+           launches, each point `encode_image`'s.  Then
+           `decode_pipelined_iter` over all 22 streams, bit for bit
+           `decode_stream`, MSBs exact, the colour-only ones through the
+           streamed lpc path ("dispatch_pipelined") and bit for bit the
+           plain path; seconds a stream
+  sweep_cli  `cli.sweep --batch-experts -g 8 --base-codec lpc --k-min 3
+           --k-max 6` on both scenes as TIFFs: 5120 K2 launches, (a)'s
+           streams, the decode logs' PSNR the dataset decode's; a second run
+           launches nothing; --pipeline and the per-job path on scene 42 at
+           K 5..6: 2 x 5120 K1 launches each, the same bytes
+Then the whole script's seconds, the kernels line (K1-K4, K5 per variant;
+K1's and K2's launches_by_path per path), the card line, and the final
+status line.  Exits non-zero without
 a result when CUDA is absent or the
 package is missing.
 """
@@ -110,6 +139,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import hashlib
 import json
 import os
@@ -380,29 +410,36 @@ def phase_expert_kernels(card: str):
     rng = np.random.default_rng(1)
     clone = lambda p: p.map(torch.clone)
 
-    def inputs(b, densities, c):
-        """(E, b) batches; one shared (b,) mask of ones (as in the sweep),
-        or per-expert masks of the given densities."""
-        x = np.zeros((E, b, F), np.float32)
-        x[..., :dim_in] = rng.uniform(-1, 1, (E, b, dim_in))
-        y = (1 / (1 + np.exp(-rng.standard_normal((E, b, c))))).astype(np.float32)
+    def inputs(b, densities, c, d_in=dim_in, n_exp=E):
+        """(n_exp, b) batches; one shared (b,) mask of ones (as in the
+        sweep), or per-expert masks of the given densities."""
+        x = np.zeros((n_exp, b, pad_dim(d_in)), np.float32)
+        x[..., :d_in] = rng.uniform(-1, 1, (n_exp, b, d_in))
+        y = (1 / (1 + np.exp(-rng.standard_normal((n_exp, b, c))))).astype(np.float32)
         if densities is None:
             mask = np.ones(b, np.float32)
         else:
             mask = np.stack([rng.random(b) < d for d in densities]).astype(np.float32)
         return [torch.from_numpy(a).to(dev) for a in (x, y, mask)]
 
-    def init(spec, c):  # a different network per expert
-        return stack_params([init_params(torch.Generator().manual_seed(e), dim_in, c, spec,
-                                         pad_input_to=F) for e in range(E)]).to(dev)
+    def init(spec, c, d_in=dim_in, n_exp=E):  # a different network per expert
+        return stack_params([init_params(torch.Generator().manual_seed(e), d_in, c, spec,
+                                         pad_input_to=pad_dim(d_in))
+                             for e in range(n_exp)]).to(dev)
 
+    # the sweep's shape, full; ragged with per-expert masks (the bucketed
+    # dataset's (E, B) masks); the wide layer set; and the coordinate
+    # features' width (150 -> F_pad 256) with per-expert masks, the
+    # coordinate sweep's (the dataset phase's (d))
     cases, max_err = [], 0.0
-    for name, b, dens, spec, c in (
-            ("full", B, None, mspec, C),
-            ("ragged_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C),
-            ("wide_ragged_per_expert_masks", 1000, (1.0, 0.8, 0.5, 0.0), ModelSpec(128, 3), 8)):
-        x, y, mask = inputs(b, dens, c)
-        p0 = init(spec, c)
+    for name, b, dens, spec, c, d_in in (
+            ("full", B, None, mspec, C, dim_in),
+            ("ragged_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C, dim_in),
+            ("wide_ragged_per_expert_masks", 1000, (1.0, 0.8, 0.5, 0.0), ModelSpec(128, 3), 8,
+             dim_in),
+            ("coords_f256_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C, 150)):
+        x, y, mask = inputs(b, dens, c, d_in)
+        p0 = init(spec, c, d_in)
         z0 = p0.map(torch.zeros_like)
         k = (clone(p0), clone(z0), clone(z0))
         p = (clone(p0), clone(z0), clone(z0))
@@ -421,31 +458,44 @@ def phase_expert_kernels(card: str):
             for st2, st1 in zip(k, one):
                 for a, r in zip(unstack_params(st2, e).leaves(), st1.leaves()):
                     assert torch.equal(a, r), (name, e)
-        rows, staged = fs.cta_layout([F] + [w.shape[-1] for w in p0.weights], fs._smem_optin)
-        cases.append({"case": name, "E": E, "B": b, "widths": [spec.base_channel,
-                                                               spec.num_layers, c],
+        rows, staged = fs.cta_layout([pad_dim(d_in)] + [w.shape[-1] for w in p0.weights],
+                                     fs._smem_optin)
+        cases.append({"case": name, "E": E, "B": b, "F_pad": pad_dim(d_in),
+                      "widths": [spec.base_channel, spec.num_layers, c],
                       "mask_densities": dens, "rows_per_cta": rows, "weights_in_smem": staged,
                       "loss": kl.tolist(), "loss_plain": pl.tolist(),
                       "max_abs_err_params": err, "params_with_grad_below_1e-6": n_ill,
                       "bit_identical_to_k1_per_expert": True})
 
-    # timing at the sweep's shape (state keeps training; lr is irrelevant)
-    x, y, mask = inputs(B, None, C)
-    tp = init(mspec, C)
-    tm, tv = tp.map(torch.zeros_like), tp.map(torch.zeros_like)
-    ms = cuda_ms(lambda: fs.fused_expert_step(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C), 300)
-    passes = pass_times(lambda: fs.fused_expert_step(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C))
-    plain_ms = cuda_ms(
-        lambda: fs.fused_expert_step_plain(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C), 30)
-    dims = [F] + [w.shape[-1] for w in tp.weights]
-    P = sum(w[0].numel() + b[0].numel() for w, b in zip(tp.weights, tp.biases))
-    ops, nbytes = step_cost(B, dims, P)
-    kernel = kernel_entry("fused_expert_step", "lbdrn_msic_tpu/ops/fused_step.py:765", card,
-                          E * ops, E * nbytes, ms, plain_ms, max_err)
-    emit({"phase": "kernels_experts", "cases": cases, "E": E, "ops": E * ops,
-          "bytes": E * nbytes, "ms": ms, "passes": passes,
-          "pass_2_after_pass_1_ms": ms - pass1_ms(passes), "design": FUSED_STEP_DESIGN,
-          "plain_ms": plain_ms, "bound_ms": kernel["bound_ms"], "card": card})
+    def timed(n_exp, d_in, densities):
+        """K2's and its plain version's ms a step, and the bound, at
+        (n_exp, B, pad_dim(d_in)); the state keeps training (lr is
+        irrelevant)."""
+        x, y, mask = inputs(B, densities, C, d_in, n_exp)
+        tp = init(mspec, C, d_in, n_exp)
+        tm, tv = tp.map(torch.zeros_like), tp.map(torch.zeros_like)
+        step = lambda f: f(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C)
+        ms = cuda_ms(lambda: step(fs.fused_expert_step), 300)
+        plain = cuda_ms(lambda: step(fs.fused_expert_step_plain), 30)
+        P = sum(w[0].numel() + b[0].numel() for w, b in zip(tp.weights, tp.biases))
+        ops, nbytes = step_cost(B, [pad_dim(d_in)] + [w.shape[-1] for w in tp.weights], P)
+        entry = kernel_entry("", "", card, n_exp * ops, n_exp * nbytes, ms, plain, 0.0)
+        return entry, (lambda: step(fs.fused_expert_step)), n_exp * ops, n_exp * nbytes
+
+    kernel, run, ops, nbytes = timed(E, dim_in, None)  # the sweep's shape
+    passes = pass_times(run)
+    kernel.update(name="fused_expert_step", replaces="lbdrn_msic_tpu/ops/fused_step.py:765",
+                  max_abs_err=max_err)
+    # the dataset cell's E = 8, and the coordinate sweep's F_pad 256 with
+    # per-expert masks
+    e8 = timed(8, dim_in, None)[0]
+    f256 = timed(E, 150, (1.0, 0.8, 0.5, 0.2))[0]
+    pick = lambda k: {key: k[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    emit({"phase": "kernels_experts", "cases": cases, "E": E, "ops": ops,
+          "bytes": nbytes, "ms": kernel["ms"], "passes": passes,
+          "pass_2_after_pass_1_ms": kernel["ms"] - pass1_ms(passes), "design": FUSED_STEP_DESIGN,
+          "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
+          "e8": pick(e8), "coords_f256": pick(f256), "card": card})
     return kernel
 
 
@@ -1034,6 +1084,38 @@ def phase_profile(what: str, run, secs):
                   for us, k, n in rows[:12]]})
 
 
+@contextlib.contextmanager
+def replaced(module, name, fn, result=None):
+    """A context in which module.name is fn; it yields `result`."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield result
+    finally:
+        setattr(module, name, real)
+
+
+def recording(module, name, calls):
+    """A context in which module.name records each call's keyword
+    arguments before making it; it yields `calls`."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **k):
+        calls.append(k)
+        return real(*a, **k)
+
+    return replaced(module, name, wrapped, calls)
+
+
+def plain_decode_path():
+    """A context in which `decode_stream` takes the plain path for a
+    row-chunked lpc base too: the whole base decoded, then
+    `dispatch_streamed`'s bands (the streamed path declines)."""
+    from lbdrn_msic_tpu_torch.decode import reconstruct
+
+    return replaced(reconstruct, "dispatch_streamed_lpc", lambda *a, **k: None)
+
+
 def phase_codec(profile: bool, kernel):
     import numpy as np
     import torch
@@ -1079,16 +1161,27 @@ def phase_codec(profile: bool, kernel):
     emit({"phase": "determinism", "encodes": 1 + len(streams), "identical": True,
           "bytes": len(warm_stream)})
 
-    dsecs = []
+    # the streamed lpc path (the stream's base has 4 row chunks), and the
+    # plain path it must equal bit for bit, interleaved
+    dsecs, psecs = [], []
     for _ in range(3):
         t0 = time.time()
         rec, dstats = decode_stream(streams[0])
         dsecs.append(time.time() - t0)
+        with plain_decode_path():
+            t0 = time.time()
+            rec_plain, pstats = decode_stream(streams[0])
+            psecs.append(time.time() - t0)
+        assert np.array_equal(rec, rec_plain), "streamed lpc decode differs from the plain path"
+    assert "dispatch_pipelined" in dstats.phases, dstats.phases
+    assert "base_decode" in pstats.phases, pstats.phases
     assert rec.shape == img.shape and rec.dtype == np.uint16
     assert np.array_equal(rec >> cfg.K, img >> cfg.K), "MSB path corrupted"
     p = psnr(img, rec)
     emit({"phase": "decode", "seconds": dsecs, "mpx_s": [mpx / s for s in dsecs],
           "phases": dstats.phases, "psnr_db": p, "bpsp": stats.bpsp,
+          "plain_path": {"seconds": psecs, "mpx_s": [mpx / s for s in psecs],
+                         "phases": pstats.phases, "bit_identical_to_streamed": True},
           "jax_package_rd_point": {"psnr_db": 61.79, "bpsp": 1.958,
                                    "source": "BENCH_r05.json"}})
 
@@ -1143,11 +1236,12 @@ def phase_sweep(profile: bool, kernel):
     kernel["launches_by_path"] = {"sweep": launches[0]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    points = []
+    points, solos = [], []
     for cfg, (stream, stats) in zip(cfgs, res):
         rec, _ = decode_stream(stream)
         assert rec.shape == img.shape and np.array_equal(rec >> cfg.K, img >> cfg.K), cfg.K
         solo, solo_stats = encode_image(img, cfg)
+        solos.append(solo)
         p, p_solo = psnr(img, rec), psnr(img, decode_stream(solo)[0])
         assert abs(p - p_solo) < 0.1, (cfg.K, p, p_solo)
         points.append({"K": cfg.K, "psnr_db": p, "bpsp": stats.bpsp,
@@ -1165,6 +1259,7 @@ def phase_sweep(profile: bool, kernel):
 
     if profile:
         phase_profile("sweep", lambda: encode_rate_points(img, cfgs), secs)
+    return {K: solo for K, solo in zip(Ks, solos)}
 
 
 def same_fit(a, b) -> bool:
@@ -1337,7 +1432,6 @@ def phase_cli(k1, encoded, img, crop_hw=(1900, 2000)):
     against its exact shape; (c) coordinate features (F_pad 256, and 128
     without colours); (d) --header-version 0 with --trace.  One run each;
     every check asserts."""
-    import contextlib
     import csv
     import glob
     import io
@@ -1509,15 +1603,268 @@ def phase_cli(k1, encoded, img, crop_hw=(1900, 2000)):
           "c_seconds": c_s, "d_v0_trace": d, "total_seconds": time.time() - t_phase})
 
 
+def phase_dataset(profile: bool, k1, k2, sweep_solos=None):
+    """The dataset workload, each `encode_dataset` run with the K1 / K2
+    counts zeroed just before it and read just after: (a) bench.py's
+    dataset cell, scenes 42 and 43 x K in {3, 4, 5, 6}: one group, one
+    chunk of 8 experts on "full" staging; (b) bucket=True on scene 42 and
+    its 1900x2000 crop: one chunk with (E, B) masks; (c) both scenes at
+    K=5 only: the pipelined path (K1); (d) a coordinate sweep of scene 42
+    (F_pad 256).  Every stream is held against `encode_image` at its K
+    (`sweep_solos`: the sweep phase's streams of scene 42, else encoded
+    here).  Then `decode_pipelined_iter` over every stream against
+    `decode_stream`.  Returns the scenes and (a)'s streams."""
+    import numpy as np
+    import torch
+
+    from lbdrn_msic_tpu_torch import codec
+    from lbdrn_msic_tpu_torch.core.config import CodecConfig, FeatureSpec, TrainSpec
+    from lbdrn_msic_tpu_torch.eval.metrics import psnr
+    from lbdrn_msic_tpu_torch.models.siren import pad_dim
+    from lbdrn_msic_tpu_torch.train.loop import _batch_geometry
+    from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+    t_phase = time.time()
+    H = W = 2048
+    mpx = H * W / 1e6
+    Ks = (3, 4, 5, 6)
+    train = TrainSpec(sample_granule=8, epochs=10)
+    n_steps = train.epochs * _batch_geometry(train, H, W).steps  # 10 x 512
+    cfgs = {K: CodecConfig(K=K, base_codec="lpc", train=train) for K in Ks}
+    t0 = time.time()
+    scenes = {s: synth_scene(H, W, channels=4, effective_bits=12, seed=s) for s in (42, 43)}
+    synth_s = time.time() - t0
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+
+    solos, solo_s = {}, {}
+
+    def solo(key, img, cfg, **kw) -> bytes:
+        """`encode_image`'s stream for `key` (encoded once, its seconds kept)."""
+        if key not in solos:
+            (stream, _), secs, launches, _ = counted_run(lambda: codec.encode_image(img, cfg, **kw))
+            assert launches == [n_steps, 0], (key, launches)
+            solos[key], solo_s[key] = stream, secs
+        return solos[key]
+
+    # (a) bench.py's dataset cell (bench.py:183-193)
+    jobs_a = [(scenes[s], cfgs[K]) for s in (42, 43) for K in Ks]
+    plan = codec._plan_group([scenes[42], scenes[43]],
+                             [(i, cfgs[K]) for i in range(2) for K in Ks], False, 16)
+    assert plan.staging == "full" and plan.chunks == [list(range(8))], plan
+    assert plan.budget == codec.STAGE_BUDGET_BYTES, plan.budget
+    t0 = time.time()
+    warm = [s for s, _ in codec.encode_dataset(jobs_a)]
+    warm_s = time.time() - t0
+    secs, peaks = [], []
+    for _ in range(3):
+        res, sec, launches, peak = counted_run(lambda: codec.encode_dataset(jobs_a))
+        assert launches == [0, n_steps], launches
+        assert [s for s, _ in res] == warm, "same seed gave different dataset streams"
+        secs.append(sec)
+        peaks.append(peak)
+    streams_a = {(s, K): stream for (s, K), (stream, _) in
+                 zip([(s, K) for s in (42, 43) for K in Ks], res)}
+    for (s, K), stream in streams_a.items():
+        if s == 42 and sweep_solos is not None:
+            solos[(42, K)] = sweep_solos[K]
+        assert stream == solo((s, K), scenes[s], cfgs[K]), ("a", s, K)
+    k2["launches_by_path"]["dataset"] = n_steps
+    a = {"jobs": "scenes 42, 43 x K 3..6", "staging": plan.staging,
+         "tap_dtypes": [str(d).replace("torch.", "") for d in plan.dtypes],
+         "staged_bytes": res[0][1].tiles[0].staged_bytes,
+         "staged_bytes_estimate": sum(plan.per_expert), "chunks": plan.chunks,
+         "warm_s": warm_s, "seconds": secs, "seconds_per_point": [x / 8 for x in secs],
+         "mpx_s_per_point": [8 * mpx / x for x in secs], "peak_device_gb": peaks,
+         "launches_k1": 0, "launches_k2": n_steps, "deterministic": True,
+         "identical_to_encode_image": True,
+         "points": [{"scene": s, "K": K, "bpsp": st.bpsp, "best_epoch": st.tiles[0].best_epoch,
+                     "best_mse": st.tiles[0].best_mse, "sha256": sha(stream)}
+                    for (s, K), (stream, st) in zip(streams_a, res)]}
+    if profile:
+        phase_profile("dataset", lambda: codec.encode_dataset(jobs_a), secs)
+
+    # (b) bucket=True: scene 42 and its crop share the 2048^2 bucket
+    crop = np.ascontiguousarray(scenes[42][:, :1900, :2000])
+    jobs_b = [(scenes[42], cfgs[K]) for K in Ks] + [(crop, cfgs[K]) for K in Ks]
+    with recording(codec, "fit_rate_experts", []) as calls:
+        res_b, sec_b, launches, peak_b = counted_run(
+            lambda: codec.encode_dataset(jobs_b, bucket=True))
+    assert launches == [0, n_steps], launches
+    assert len(calls) == 1 and [tuple(h) for h in calls[0]["hws"]] == \
+        [(H, W)] * 4 + [(1900, 2000)] * 4, calls
+    k2["launches_by_path"]["dataset_bucket"] = n_steps
+    b_points = []
+    for (img, cfg), (stream, st) in zip(jobs_b, res_b):
+        rec, _ = codec.decode_stream(stream)
+        assert rec.shape == img.shape and np.array_equal(rec >> cfg.K, img >> cfg.K)
+        if img is crop:
+            ref = solo(("crop", cfg.K), crop, cfg, bucket=True)
+        else:
+            ref = streams_a[(42, cfg.K)]
+        same = stream == ref
+        d_db = 0.0 if same else psnr(img, rec) - psnr(img, codec.decode_stream(ref)[0])
+        assert same or abs(d_db) < 0.1, (cfg.K, d_db)
+        b_points.append({"image": "crop" if img is crop else "scene42", "K": cfg.K,
+                         "identical_to_reference": same, "psnr_db": psnr(img, rec),
+                         "psnr_minus_reference_db": d_db, "sha256": sha(stream)})
+    b = {"bucket": [H, W], "crop": [1900, 2000], "seconds": sec_b, "peak_device_gb": peak_b,
+         "launches_k2": n_steps, "per_expert_masks": True,
+         "reference": "crop: encode_image(bucket=True); scene 42: (a)'s stream",
+         "points": b_points}
+
+    # (c) one rate point per image: the pipelined path, K1
+    jobs_c = [(scenes[s], cfgs[5]) for s in (42, 43)]
+    solo((42, 5), scenes[42], cfgs[5])
+    solo((43, 5), scenes[43], cfgs[5])
+    two_s = []
+    for s in (42, 43):  # two encode_image calls, timed in this phase
+        (stream, _), sec, _, _ = counted_run(lambda: codec.encode_image(scenes[s], cfgs[5]))
+        assert stream == solos[(s, 5)]
+        two_s.append(sec)
+    res_c, sec_c, launches, _ = counted_run(lambda: codec.encode_dataset(jobs_c))
+    assert launches == [2 * n_steps, 0], launches
+    assert [r[0] for r in res_c] == [solos[(42, 5)], solos[(43, 5)]], "pipelined != encode_image"
+    k1["launches_by_path"]["dataset_pipelined"] = 2 * n_steps
+    c = {"jobs": "scenes 42, 43 at K=5", "seconds": sec_c, "encode_image_seconds": two_s,
+         "seconds_over_two_encode_images": sec_c / sum(two_s), "launches_k1": 2 * n_steps,
+         "identical_to_encode_image": True}
+
+    # (d) a coordinate sweep: K2 at F_pad 256
+    fspec = FeatureSpec(use_coords=True, embedding=True)
+    cfgs_d = {K: CodecConfig(K=K, base_codec="lpc", train=train, features=fspec) for K in Ks}
+    jobs_d = [(scenes[42], cfgs_d[K]) for K in Ks]
+    res_d, sec_d, launches, peak_d = counted_run(lambda: codec.encode_dataset(jobs_d))
+    assert launches == [0, n_steps], launches
+    for (img, cfg), (stream, _) in zip(jobs_d, res_d):
+        assert stream == solo(("coords", cfg.K), img, cfg), ("d", cfg.K)
+    k2["launches_by_path"]["dataset_coords_f256"] = n_steps
+    d = {"features": "use_coords, embedding", "F": fspec.feature_dim(4),
+         "F_pad": pad_dim(fspec.feature_dim(4)), "seconds": sec_d, "peak_device_gb": peak_d,
+         "launches_k2": n_steps, "identical_to_encode_image": True,
+         "encode_image_seconds": [solo_s[("coords", K)] for K in Ks]}
+    assert d["F_pad"] == 256
+
+    # the pipelined decode of every stream, against decode_stream
+    named = ([(f"a{s}_K{K}", scenes[s], K, streams_a[(s, K)]) for s in (42, 43) for K in Ks]
+             + [(f"b_{p['image']}_K{p['K']}", img, cfg.K, r[0])
+                for p, (img, cfg), r in zip(b_points, jobs_b, res_b)]
+             + [(f"c{s}_K5", scenes[s], 5, r[0]) for s, r in zip((42, 43), res_c)]
+             + [(f"d_K{K}", scenes[42], K, r[0]) for K, r in zip(Ks, res_d)])
+    (piped, pipe_s, launches, pipe_peak) = counted_run(
+        lambda: list(codec.decode_pipelined_iter(n[3] for n in named)))
+    assert launches == [0, 0] and len(piped) == len(named)
+    solo_dec, plain_dec, dec = [], [], []
+    for (name, img, K, stream), (rec, st) in zip(named, piped):
+        t0 = time.time()
+        ref, ref_st = codec.decode_stream(stream)
+        solo_dec.append(time.time() - t0)
+        assert np.array_equal(rec, ref), name
+        assert rec.shape == img.shape and np.array_equal(rec >> K, img >> K), name
+        want = "coords" if name.startswith("d_") else "dispatch_pipelined"
+        assert (want == "dispatch_pipelined") == ("dispatch_pipelined" in st.phases), (name, st)
+        assert ref_st.phases.keys() == st.phases.keys(), name
+        if want == "dispatch_pipelined":  # the streamed lpc path against the plain one
+            with plain_decode_path():
+                t0 = time.time()
+                plain, plain_st = codec.decode_stream(stream)
+                plain_dec.append(time.time() - t0)
+            assert "base_decode" in plain_st.phases and np.array_equal(rec, plain), name
+        dec.append({"stream": name, "phases": sorted(st.phases), "psnr_db": psnr(img, rec)})
+    decode = {"streams": len(named), "pipelined_s": pipe_s,
+              "pipelined_s_per_stream": pipe_s / len(named),
+              "decode_stream_s_per_stream": sum(solo_dec) / len(named),
+              "plain_path_streams": len(plain_dec),
+              "plain_path_s_per_stream": sum(plain_dec) / len(plain_dec),
+              "streamed_lpc_bit_identical_to_plain_path": True,
+              "peak_device_gb": pipe_peak, "bit_identical_to_decode_stream": True,
+              "msb_exact": True, "per_stream": dec}
+    emit({"phase": "dataset", "synth_s": synth_s, "a_bench_cell": a, "b_bucket": b,
+          "c_pipelined": c, "d_coords": d, "decode": decode,
+          "solo_encode_s": {str(k): v for k, v in solo_s.items()},
+          "total_seconds": time.time() - t_phase})
+    return {"scenes": scenes, "streams": streams_a,
+            "psnr": {(int(n[0][1:3]), n[2]): x["psnr_db"] for n, x in zip(named[:8], dec[:8])}}
+
+
+def phase_sweep_cli(k1, k2, data):
+    """`cli.sweep` on the dataset phase's two scenes written as TIFFs, in
+    this process with the counts zeroed before each run: --batch-experts
+    over both scenes at K 3..6 (one chunk of 8 experts; the streams are
+    the dataset phase's (a)), the same command again (resumes, launches
+    nothing), then --pipeline and the per-job path on scene 42 at K 5..6."""
+    import glob
+    import io
+    import tempfile
+
+    from lbdrn_msic_tpu_torch.cli import sweep as sweep_cli
+    from lbdrn_msic_tpu_torch.core.config import TrainSpec
+    from lbdrn_msic_tpu_torch.io.tiff import write_tiff
+    from lbdrn_msic_tpu_torch.train.loop import _batch_geometry
+    from lbdrn_msic_tpu_torch.utils.logging import scrape_log
+
+    t_phase = time.time()
+    train = TrainSpec(sample_granule=8, epochs=10)
+    n_steps = train.epochs * _batch_geometry(train, 2048, 2048).steps
+    tmp = tempfile.mkdtemp(prefix="sweep_cli_")
+    paths = {}
+    for s, img in data["scenes"].items():
+        paths[s] = os.path.join(tmp, f"s{s}.tif")
+        write_tiff(paths[s], img)
+    flags = ["-g", "8", "--base-codec", "lpc"]
+
+    def sweep(out, scenes, k_min, k_max, *mode):
+        printed = io.StringIO()
+        argv = ["-i", *[paths[s] for s in scenes], "-o", os.path.join(tmp, out), *flags,
+                "--k-min", str(k_min), "--k-max", str(k_max), *mode]
+        with contextlib.redirect_stdout(printed):
+            rc, secs, launches, _ = counted_run(lambda: sweep_cli.main(argv))
+        assert rc == 0, rc
+        got = {}
+        for s in scenes:
+            for K in range(k_min, k_max + 1):
+                run_dir, = glob.glob(os.path.join(tmp, out, f"s{s}_r1_K{K}_*"))
+                with open(os.path.join(run_dir, f"s{s}.bin"), "rb") as f:
+                    got[(s, K)] = (f.read(), scrape_log(os.path.join(run_dir, "decode.txt")))
+        return got, secs, launches, printed.getvalue()
+
+    experts, secs, launches, _ = sweep("experts", (42, 43), 3, 6, "--batch-experts")
+    assert launches == [0, n_steps], launches
+    k2["launches_by_path"]["sweep_cli"] = launches[1]
+    for key, (stream, log) in experts.items():
+        assert stream == data["streams"][key], ("batch-experts", key)
+        assert log["psnr"] == data["psnr"][key], (key, log, data["psnr"][key])
+    _, again_s, again, printed = sweep("experts", (42, 43), 3, 6, "--batch-experts")
+    assert again == [0, 0] and "encode of" not in printed and "decoded" not in printed, printed
+    modes = {}
+    for name, mode in (("pipeline", ["--pipeline"]), ("per_job", [])):
+        got, m_s, launches, _ = sweep(name, (42,), 5, 6, *mode)
+        assert launches == [2 * n_steps, 0], (name, launches)
+        assert {k: v[0] for k, v in got.items()} == \
+            {k: data["streams"][k] for k in got}, name
+        k1["launches_by_path"][f"sweep_cli_{name}"] = launches[0]
+        modes[name] = {"seconds": m_s, "launches_k1": launches[0],
+                       "identical_to_batch_experts": True}
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "sweep_cli", "flags": flags + ["--batch-experts", "--k-min", "3",
+                                                   "--k-max", "6"],
+          "batch_experts": {"seconds": secs, "launches_k2": n_steps,
+                            "identical_to_dataset_a": True, "psnr_equal_to_dataset_decode": True},
+          "resume": {"seconds": again_s, "launches": again}, "scene42_K5_6": modes,
+          "total_seconds": time.time() - t_phase})
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "cli"), default=None,
+    ap.add_argument("--only", choices=("kernels", "cli", "dataset"), default=None,
                     help="kernels: the kernel phases only; cli: the encode, decode "
-                         "and rd phases and the cli phase only (no kernels line)")
+                         "and rd phases and the cli phase only; dataset: the dataset "
+                         "and sweep_cli phases only (neither of the last two prints "
+                         "the kernels line)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one encode, one sweep, two fits and two GF-2 epochs "
-                         "with torch.profiler")
+                    help="also trace one encode, one sweep, two fits, two GF-2 epochs "
+                         "and one dataset encode with torch.profiler")
     args = ap.parse_args()
+    t_script = time.time()
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -1564,6 +1911,13 @@ def main():
         phase_cli(k1, encoded, synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42))
         emit({"k1_launches_by_path": k1["launches_by_path"]})
         return
+    if args.only == "dataset":
+        k1, k2 = {"launches_by_path": {}}, {"launches_by_path": {}}
+        phase_sweep_cli(k1, k2, phase_dataset(args.profile, k1, k2))
+        emit({"k1_launches_by_path": k1["launches_by_path"],
+              "k2_launches_by_path": k2["launches_by_path"],
+              "script_seconds": time.time() - t_script})
+        return
     k1 = phase_kernels(card)
     k2 = phase_expert_kernels(card)
     k3, k4 = phase_multi_kernels(card)
@@ -1571,12 +1925,14 @@ def main():
     k5 = phase_kernel_prof(card)
     if args.only != "kernels":
         encoded = phase_codec(args.profile, k1)
-        phase_sweep(args.profile, k2)
+        sweep_solos = phase_sweep(args.profile, k2)
         phase_multi_k(card, args.profile, k3, k4)
         phase_staging(args.profile, k1, k2)
         from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
         phase_cli(k1, encoded, synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42))
+        phase_sweep_cli(k1, k2, phase_dataset(args.profile, k1, k2, sweep_solos))
+    emit({"phase": "total", "script_seconds": time.time() - t_script})
     emit({"kernels": [k1, k2, k3, k4, *k5]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,7 +75,8 @@ class EncodeStats:
     n_subpixels: int
     elapsed: float
     # host-side phase accounting: dispatch (h2d + prep + training queued),
-    # train_wait (blocking on the device), weights_codec, base_wait
+    # train_wait (blocking on the device), weights_codec, base_wait (a rate
+    # sweep: finalize, the two of every point)
     phases: Optional[dict] = None
 
     @property
@@ -95,6 +96,19 @@ class DecodeStats:
 # Staging budget per tile, kept at the JAX package's value so `pick_staging`
 # decides as it does (re-deriving it for an 80 GB card is ROADMAP work).
 STAGE_BUDGET_BYTES = 8 << 30
+# The dataset encode's three TPU fences, carried over unchanged so that the
+# port's chunk plan is the JAX package's (ROADMAP queue item 1 lists their
+# removal with the 80 GB re-derivation of STAGE_BUDGET_BYTES).  In the port
+# chunking never changes a stream's bytes (K2's expert e is K1, bit for
+# bit), so each fence is a question of device memory and speed only:
+# - SERIAL_SCENE_BYTES: scenes whose image + label store exceed it train one
+#   expert a chunk (JAX: a v5e codegen fault with >= 2 distinct experts at
+#   Gaofen-bucket shapes) and, in JAX, one chunk on the device at a time.
+#   Every port fit ends on its last eval's sync, so chunks never queue on
+#   the card together here; the one-expert cap is what remains of it;
+# - the halved budget of a group that needs several chunks (two chunks in
+#   flight in JAX), in `_plan_group`.
+SERIAL_SCENE_BYTES = 256 << 20
 
 
 def _cached_bytes(H: int, W: int, C: int, fspec, g: int) -> int:
@@ -210,6 +224,15 @@ def tile_generator(seed: int, tile_idx: int) -> torch.Generator:
     """CPU generator of one tile's init params and epoch permutations."""
     state = np.random.SeedSequence([seed, tile_idx]).generate_state(2, np.uint32)
     return torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
+
+
+def job_seed(seed: int, job_idx: int) -> int:
+    """The seed of job `job_idx` of a multi-job encode called with an
+    explicit `seed` (the counterpart of the JAX package's
+    ``fold_in(key, job_idx)``): `encode_pipelined` jobs and partner-less
+    `encode_dataset` jobs encode as ``encode_image(img, cfg,
+    seed=job_seed(seed, job_idx))``."""
+    return int(np.random.SeedSequence(seed, spawn_key=(job_idx,)).generate_state(1)[0])
 
 
 def _msb_plane(tile: np.ndarray, K: int) -> np.ndarray:
@@ -351,6 +374,89 @@ def encode_image(
     )
 
 
+def _coded_job(cfg: CodecConfig, shape, flat: np.ndarray, base_future, fit, e: Optional[int],
+               t_train: float, t0: float, header_version: int = 1):
+    """One untiled job's (stream, stats): its weights coded, its base
+    codec's bytes (awaited), a header with the real (height, width) of
+    `shape` (C, H, W).  `fit` is the job's fit result; `e` picks the job's
+    expert of an expert fit (None: a one-network fit)."""
+    C, H, W = shape
+    nn = compress_weights(flat, cfg.precision, cfg.weight_codec)
+    base = base_future.result()
+    header = header_from_config(cfg, W, H, [len(nn)], [len(base)], version=header_version)
+    stream = encode_header(header) + nn + base
+    best_mse, best_epoch = ((fit.best_mse, fit.best_epoch) if e is None
+                            else (fit.best_mse[e], fit.best_epoch[e]))
+    return stream, EncodeStats(
+        tiles=[TileStats(
+            nn_bytes=len(nn), base_bytes=len(base), best_mse=best_mse, best_epoch=best_epoch,
+            train_time=t_train, base_time=0.0, staging=fit.staging,
+            staged_bytes=fit.staged_bytes,
+        )],
+        total_bytes=len(stream),
+        n_subpixels=C * H * W,
+        elapsed=time.time() - t0,
+    )
+
+
+def encode_pipelined(
+    jobs: List[tuple[np.ndarray, CodecConfig]],
+    seed: Optional[int] = None,
+    header_version: int = 1,
+    bucket: bool = False,
+    seeds: Optional[List[int]] = None,
+    device=None,
+) -> List[tuple[bytes, EncodeStats]]:
+    """Encode a list of (image, cfg) jobs, one after another on the device,
+    with the host work of each job overlapping its neighbours' training:
+    job i's base codec runs in a worker thread while it trains, and its
+    weight coding and stream assembly in another while job i + 1 uploads,
+    stages and trains.
+
+    Each stream is byte-identical to ``encode_image(img, cfg, seed=s,
+    header_version=header_version, bucket=bucket)`` with s = `seeds[i]`
+    when given, else ``job_seed(seed, i)`` for an explicit `seed`, else
+    cfg.train.seed.  Tiled jobs (split_ratio > 1) go to `encode_image`.
+    `device=None` means CUDA.
+    """
+    device = resolve_device(device)
+    if any(cfg.base_codec == "jp2" for _, cfg in jobs):
+        require_cv2()
+    results: List[Optional[tuple[bytes, EncodeStats]]] = [None] * len(jobs)
+
+    def finalize(i, cfg, shape, flat, base_future, result, t_start, t_train):
+        results[i] = _coded_job(cfg, shape, flat, base_future, result, None, t_train, t_start,
+                                header_version)
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=1) as fin_pool:
+        fins = []
+        for i, (img, cfg) in enumerate(jobs):
+            if img.ndim == 2:
+                img = img[None]
+            if seeds is not None:
+                s = seeds[i]
+            else:
+                s = cfg.train.seed if seed is None else job_seed(seed, i)
+            if cfg.split_ratio != 1:
+                results[i] = encode_image(img, cfg, s, device=device,
+                                          header_version=header_version, bucket=bucket)
+                continue
+            t_start = time.time()
+            base_future = pool.submit(
+                lambda t=img, c=cfg: encode_base(_msb_plane(t, c.K), c.base_codec))
+            flat_fn, result = _train_tile(img, cfg, tile_generator(s, 0), device,
+                                          bucket=bucket)
+            # the fit ended on its last eval's sync: fetch before the next
+            # job's steps are queued behind this copy
+            flat = flat_fn()
+            fins.append(fin_pool.submit(finalize, i, cfg, img.shape, flat, base_future, result,
+                                        t_start, time.time() - t_start))
+        for f in fins:
+            f.result()
+    return results  # type: ignore[return-value]
+
+
 def _experts_compatible(cfgs: List[CodecConfig]) -> bool:
     """Rate-point jobs can train together as experts iff they differ only
     in K."""
@@ -364,8 +470,6 @@ def _experts_compatible(cfgs: List[CodecConfig]) -> bool:
         and c.weight_codec == c0.weight_codec
         and c.base_codec == c0.base_codec
         and c.features.use_colors
-        # the expert loop has no coordinate features yet: point by point
-        and not c.features.use_coords
         for c in cfgs
     )
 
@@ -377,7 +481,10 @@ def plan_rate_points(img: np.ndarray, cfgs: List[CodecConfig]):
     alone (dtypes: the tap matrices'), else "banded" when its row taps do
     (the raw row taps'), else "gather", which the sweep leaves to
     `encode_image` one config at a time; experts are chunked into groups
-    whose staged bytes fit the budget together."""
+    whose staged bytes fit the budget together.  Apart from `_plan_group`,
+    as in the JAX package: the dataset plan's TPU fences (the halved budget,
+    one expert a chunk above SERIAL_SCENE_BYTES) never applied to a sweep,
+    and would split the GF-2 sweep into four one-expert fits."""
     C, H, W = img.shape
     fspec = cfgs[0].features
     g = cfgs[0].train.sample_granule
@@ -461,35 +568,285 @@ def encode_rate_points(
                 flats = [flatten_params(unstack_params(result.params, e),
                                         fspec.feature_dim(C)) for e in range(len(grp))]
             t_train = time.time() - t0
-            for e, i in enumerate(grp):
-                cfg = cfgs[i]
-                with timer.phase("weights_codec"):
-                    nn = compress_weights(flats[e], cfg.precision, cfg.weight_codec)
-                with timer.phase("base_wait"):
-                    base = base_futs[e].result()
-                header = header_from_config(cfg, W, H, [len(nn)], [len(base)], version=1)
-                stream = encode_header(header) + nn + base
-                results[i] = (stream, EncodeStats(
-                    tiles=[TileStats(
-                        nn_bytes=len(nn), base_bytes=len(base),
-                        best_mse=result.best_mse[e], best_epoch=result.best_epoch[e],
-                        train_time=t_train / len(grp), base_time=0.0,
-                        staging=result.staging, staged_bytes=result.staged_bytes,
-                    )],
-                    total_bytes=len(stream),
-                    n_subpixels=C * H * W,
-                    elapsed=time.time() - t0,
-                ))
+            with timer.phase("finalize"):  # weight coding, base codec wait
+                for e, i in enumerate(grp):
+                    results[i] = _coded_job(cfgs[i], img.shape, flats[e], base_futs[e], result,
+                                            e, t_train / len(grp), t0)
             for i in grp:  # the group's phases, shared by its points
                 results[i][1].phases = dict(timer.phases)
+    return results  # type: ignore[return-value]
+
+
+def encode_dataset(
+    jobs: List[tuple[np.ndarray, CodecConfig]],
+    seed: Optional[int] = None,
+    header_version: int = 1,
+    mesh=None,
+    max_experts: int = 16,
+    bucket: bool = False,
+    device=None,
+) -> List[tuple[bytes, EncodeStats]]:
+    """Encode a dataset of (image, cfg) jobs with cross-image expert
+    batching (the reference's run.sh workload: many images x many K).
+
+    Experts are (image, K) pairs: jobs of one shape and one
+    config-modulo-K train together (`fit_rate_experts` with `img_of`;
+    kernel K2 on the card) in chunks of up to `max_experts` networks whose
+    staged taps fit the budget, label stores shared per image, each chunk's
+    host base codecs in a pool of 4 while it trains, and its weight coding
+    while the next chunk trains.  A group with one rate point per image
+    goes through `encode_pipelined`; jobs without a partner (a unique
+    shape or config) too, and each of those streams is byte-identical to
+    `encode_image`'s.  Results come back in job order.  Each expert is
+    bit-identical to `fit` on its image and K, so every stream is
+    `encode_image`'s at the same seed, chunked or not.
+
+    Seeds: with ``seed=None`` every job trains from
+    ``tile_generator(cfg.train.seed, 0)``, as `encode_image(img, cfg)`
+    does.  With an explicit seed, every job of a group trains from
+    ``tile_generator(seed, 0)`` whatever path the group takes (expert
+    chunks, the pipelined one-job-per-image path, or the per-job path of
+    a group whose taps exceed every staging budget), so a job's bytes do
+    not depend on how other jobs grouped; a partner-less job j encodes as
+    ``encode_image(img, cfg, seed=job_seed(seed, j))``, j its index in
+    `jobs`.
+
+    ``bucket=True`` groups by bucket shape (`bucket_dims`) instead of
+    exact shape, for colour features without coordinates (as
+    `encode_image(bucket=True)` gates it): images of one bucket are padded
+    (`_pad_to_bucket`) and train together with per-expert pad masks
+    (`fit_rate_experts(hws=)`); each stream is then
+    `encode_image(bucket=True)`'s.  `mesh` (multi-card expert fan-out) is
+    not ported: ROADMAP queue 6.  `device=None` means CUDA.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "encode_dataset(mesh=...): multi-card parallelism is not ported to the "
+            "PyTorch package yet (ROADMAP queue 6)")
+    device = resolve_device(device)
+    njobs = [(img[None] if img.ndim == 2 else img, cfg) for img, cfg in jobs]
+    if any(cfg.base_codec == "jp2" for _, cfg in njobs):
+        require_cv2()
+
+    def bucket_ok(cfg) -> bool:
+        return bucket and cfg.features.use_colors and not cfg.features.use_coords
+
+    def same_group(img, cfg, img0, cfg0) -> bool:
+        if not _experts_compatible([cfg0, cfg]):
+            return False
+        if img.shape == img0.shape:
+            return True
+        if not (bucket_ok(cfg) and img.shape[0] == img0.shape[0]):
+            return False
+        D = cfg.features.D
+        return bucket_dims(*img.shape[1:], D) == bucket_dims(*img0.shape[1:], D)
+
+    # group job indices by (shape or bucket, config modulo K)
+    groups: List[List[int]] = []
+    for j, (img, cfg) in enumerate(njobs):
+        for grp in groups:
+            if same_group(img, cfg, *njobs[grp[0]]):
+                grp.append(j)
+                break
+        else:
+            groups.append([j])
+
+    results: List[Optional[tuple[bytes, EncodeStats]]] = [None] * len(njobs)
+    singles = [grp[0] for grp in groups if len(grp) == 1]
+    for grp in groups:
+        if len(grp) > 1:
+            gres = _encode_job_group([njobs[j] for j in grp], seed, header_version,
+                                     max_experts, bucket_ok(njobs[grp[0]][1]), device)
+            for j, r in zip(grp, gres):
+                results[j] = r
+    if singles:
+        seeds = None if seed is None else [job_seed(seed, j) for j in singles]
+        for j, r in zip(singles, encode_pipelined([njobs[j] for j in singles], None,
+                                                  header_version, bucket, seeds, device)):
+            results[j] = r
+    return results  # type: ignore[return-value]
+
+
+@dataclasses.dataclass
+class GroupPlan:
+    """How `_encode_job_group` trains one group: the shape every expert
+    trains at (a bucket's with `bucket`), the real (height, width) per
+    unique image, the staging mode, each expert's tap dtype and staged
+    bytes, the budget after the halving rule, and the chunks (lists of
+    expert indices)."""
+
+    H: int
+    W: int
+    dims: List[tuple]
+    staging: str
+    dtypes: list
+    per_expert: List[int]
+    budget: int
+    chunks: List[List[int]]
+
+
+def _plan_group(uniq: List[np.ndarray], ijobs: List[tuple], bucket: bool,
+                max_experts: int) -> Optional[GroupPlan]:
+    """The JAX package's plan for one expert group (its codec.py
+    `_encode_job_group`): "full" tap staging when every expert's tap matrix
+    fits the budget alone, else "banded", else None (the group is encoded
+    job by job); the budget halves when the group's staging and images
+    exceed it (several chunks); scenes above SERIAL_SCENE_BYTES take one
+    expert a chunk; chunks pack whole images' experts, an image whose
+    experts overflow the budget split by it."""
+    C, H, W = uniq[0].shape
+    cfg0 = ijobs[0][1]
+    fspec = cfg0.features
+    g = cfg0.train.sample_granule
+    maxes = [int(im.max()) for im in uniq]
+    dims = [tuple(im.shape[1:]) for im in uniq]
+    if bucket:
+        H, W = bucket_dims(H, W, fspec.D)
+    sizes = [
+        _staging_bytes(H, W, C, fspec, g, _tap_itemsize(maxes[i] >> c.K, fspec.relative),
+                       _tap_itemsize(maxes[i] >> c.K, False))
+        for i, c in ijobs
+    ]
+    budget = STAGE_BUDGET_BYTES
+    if max(s[0] for s in sizes) <= budget:
+        staging, per_expert = "full", [s[0] for s in sizes]
+        dtypes = [tap_matrix_dtype(maxes[i] >> c.K, fspec.relative) for i, c in ijobs]
+    elif max(s[1] for s in sizes) <= budget:
+        staging, per_expert = "banded", [s[1] for s in sizes]
+        dtypes = [row_taps_dtype(maxes[i] >> c.K) for i, c in ijobs]
+    else:
+        return None
+    per_image_fixed = 4 * H * W * C  # uint16 image + label store
+    if sum(per_expert) + len(uniq) * per_image_fixed > budget:
+        budget //= 2
+    if per_image_fixed > SERIAL_SCENE_BYTES:
+        max_experts = 1
+    # pack whole images (their experts stay adjacent); an image whose own
+    # experts overflow splits by budget
+    by_img: dict = {}
+    for e, (i, _) in enumerate(ijobs):
+        by_img.setdefault(i, []).append(e)
+    units: List[List[int]] = []
+    for es in by_img.values():
+        span: List[int] = []
+        acc = per_image_fixed
+        for e in es:
+            if span and (len(span) >= max_experts or acc + per_expert[e] > budget):
+                units.append(span)
+                span, acc = [], per_image_fixed
+            span.append(e)
+            acc += per_expert[e]
+        units.append(span)
+    chunks: List[List[int]] = [[]]
+    acc = 0
+    for span in units:
+        cost = per_image_fixed + sum(per_expert[e] for e in span)
+        if chunks[-1] and (len(chunks[-1]) + len(span) > max_experts or acc + cost > budget):
+            chunks.append([])
+            acc = 0
+        chunks[-1].extend(span)
+        acc += cost
+    return GroupPlan(H, W, dims, staging, dtypes, per_expert, budget, chunks)
+
+
+def _encode_job_group(
+    gjobs: List[tuple[np.ndarray, CodecConfig]],
+    seed: Optional[int],
+    header_version: int,
+    max_experts: int,
+    bucket: bool,
+    device: torch.device,
+) -> List[tuple[bytes, EncodeStats]]:
+    """Expert-batch one compatible group of (image, cfg) jobs (one shape,
+    or one bucket with `bucket`; configs differing only in K).  See
+    `encode_dataset`."""
+    # dedup images by identity: the rate points of one image share it
+    uniq: List[np.ndarray] = []
+    idmap: dict = {}
+    ijobs: List[tuple[int, CodecConfig]] = []
+    for img, cfg in gjobs:
+        if id(img) not in idmap:
+            idmap[id(img)] = len(uniq)
+            uniq.append(img)
+        ijobs.append((idmap[id(img)], cfg))
+    # every path of the group trains from the group's draws (the seed contract)
+    seeds = None if seed is None else [seed] * len(gjobs)
+    # one job per image (a single-rate-point dataset): per-job fits stage
+    # the fastest way (the f32 feature cache) and no upload is shared, so
+    # the pipelined path wins (JAX package: 0.63 against 1.03 s a job)
+    if len(ijobs) == len(uniq):
+        return encode_pipelined(gjobs, None, header_version, bucket, seeds, device)
+    plan = _plan_group(uniq, ijobs, bucket, max_experts)
+    if plan is None:  # even banded taps exceed the budget: job by job
+        return encode_pipelined(gjobs, None, header_version, bucket, seeds, device)
+
+    C = uniq[0].shape[0]
+    H, W, dims = plan.H, plan.W, plan.dims
+    cfg0 = gjobs[0][1]
+    fspec = cfg0.features
+    gen_seed = cfg0.train.seed if seed is None else seed
+    needs_hws = any(d != (H, W) for d in dims)
+    results: List[Optional[tuple[bytes, EncodeStats]]] = [None] * len(gjobs)
+
+    def finalize(chunk, flats, result, base_futs, t0, t_train):
+        for e, j in enumerate(chunk):
+            i, cfg = ijobs[j]
+            results[j] = _coded_job(cfg, (C,) + dims[i], flats[e], base_futs[e], result, e,
+                                    t_train / len(chunk), t0, header_version)
+
+    # the expert loop evaluates expert by expert, one row block at a time,
+    # so the JAX package's EVAL_UNROLL_PX switch has no counterpart here
+    dev_cache: dict = {}  # image index -> device copy, kept across chunks
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=1) as fin_pool:
+        fins = []
+        for chunk in plan.chunks:
+            t0 = time.time()
+            c_imgs = sorted({ijobs[j][0] for j in chunk})
+            for stale in [i for i in dev_cache if i not in c_imgs]:
+                del dev_cache[stale]
+            for i in c_imgs:
+                if i not in dev_cache:
+                    im = uniq[i]
+                    if dims[i] != (H, W):
+                        im = _pad_to_bucket(im, fspec.D, H, W)
+                    dev_cache[i] = put_image(im, device)
+            base_futs = [
+                pool.submit(lambda i=ijobs[j][0], K=ijobs[j][1].K:
+                            encode_base(_msb_plane(uniq[i], K), cfg0.base_codec))
+                for j in chunk
+            ]
+            result = fit_rate_experts(
+                tuple(dev_cache[i] for i in c_imgs), [ijobs[j][1].K for j in chunk],
+                tile_generator(gen_seed, 0), fspec, cfg0.model, cfg0.train, H, W, C,
+                tap_dtypes=[plan.dtypes[j] for j in chunk], staging=plan.staging,
+                img_of=[c_imgs.index(ijobs[j][0]) for j in chunk],
+                hws=[dims[ijobs[j][0]] for j in chunk] if needs_hws else None,
+                device=device,
+            )
+            # the fit ended on its last eval's sync: fetch before the next
+            # chunk's steps are queued behind these copies
+            flats = [flatten_params(unstack_params(result.params, e), fspec.feature_dim(C))
+                     for e in range(len(chunk))]
+            fins.append(fin_pool.submit(finalize, chunk, flats, result, base_futs, t0,
+                                        time.time() - t0))
+        for f in fins:
+            f.result()
     return results  # type: ignore[return-value]
 
 
 def _dispatch_decode(data: bytes, pt: PhaseTimer, device: torch.device):
     """Header parse, then per tile: base decode, weight decode and the
     device residual dispatch.  Returns (header, finishes), one zero-arg
-    finish() per tile that fetches and assembles it."""
-    from lbdrn_msic_tpu_torch.decode.reconstruct import dispatch_streamed
+    finish() per tile that fetches and assembles it.  A row-chunked (v2)
+    `lpc` base of a colour-only stream takes the streamed path instead
+    (`dispatch_streamed_lpc`, phase "dispatch_pipelined"): its chunks decode
+    on the host while the device computes the bands already decoded."""
+    from lbdrn_msic_tpu_torch.codecs import lpc
+    from lbdrn_msic_tpu_torch.decode.reconstruct import (
+        dispatch_streamed,
+        dispatch_streamed_lpc,
+    )
 
     header = decode_header(data)
     ptr = header_size(data)
@@ -501,9 +858,24 @@ def _dispatch_decode(data: bytes, pt: PhaseTimer, device: torch.device):
         ptr += header.nn_bytes[t]
         base_stream = data[ptr : ptr + header.base_bytes[t]]
         ptr += header.base_bytes[t]
+        # a v0 header has no codec field: the payload's magic names it
+        codec_name = header.base_codec if header.version else payload_codec(base_stream)
+        # every tile, as the JAX package's decode without a mesh (its `sp == 1`
+        # guard is the mesh's data-parallel width, not the split ratio)
+        if codec_name == "lpc" and not fspec.use_coords:
+            info = lpc.chunk_info(base_stream)  # a header peek before any weight work
+            if info is not None and info[5] > 1:  # None: a v1 (one-chunk) stream
+                with pt.phase("dispatch_pipelined"):
+                    C = info[0]
+                    flat = decompress_weights(nn, header.weight_codec)
+                    params = unflatten_params(flat, fspec.feature_dim(C), C, mspec,
+                                              device=device)
+                    got = dispatch_streamed_lpc(base_stream, params, fspec, mspec, header.K,
+                                                device)
+                if got is not None:
+                    pending.append(got[1])
+                    continue
         with pt.phase("base_decode"):
-            # a v0 header has no codec field: the payload's magic names it
-            codec_name = header.base_codec if header.version else payload_codec(base_stream)
             base = decode_base(base_stream, codec_name)
         C = base.shape[0]
         with pt.phase("dispatch"):
@@ -529,3 +901,71 @@ def decode_stream(data: bytes, device=None) -> tuple[np.ndarray, DecodeStats]:
         header, pending = _dispatch_decode(data, pt, device)
         img = _finalize_decode(header, pending, pt)
     return img, DecodeStats(elapsed=time.time() - t0, header=header, phases=dict(pt.phases))
+
+
+# decode-ahead budget: decoded bases and outputs of the streams dispatched
+# beyond the one being finalized (`decode_pipelined_iter`)
+DECODE_AHEAD_BYTES = 6 << 30
+
+
+def decode_pipelined_iter(streams, mesh=None, ahead: int = 2, device=None):
+    """Decode an iterable of bitstreams with cross-stream pipelining: one
+    dispatch worker runs the host base and weight decodes and the device
+    dispatch of the streams up to `ahead` past the one the caller's thread
+    fetches and assembles.  The worker is one thread, so the device work is
+    queued in stream order; results yield in order, bit-identical to
+    `decode_stream`.  At most `ahead` + 1 streams are live, and the next
+    dispatch waits while the estimate of in-flight host bytes (8 bytes a
+    pixel, read from each header) exceeds DECODE_AHEAD_BYTES.  `mesh`
+    (multi-card decode) is not ported: ROADMAP queue 6.  `device=None`
+    means CUDA."""
+    import collections
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "decode_pipelined_iter(mesh=...): multi-card parallelism is not ported to "
+            "the PyTorch package yet (ROADMAP queue 6)")
+    device = resolve_device(device)
+    it = iter(streams)
+    inflight = collections.deque()  # (t0, timer, future, estimated bytes)
+    live_bytes = 0
+
+    def est_bytes(data: bytes) -> int:
+        h = decode_header(data)
+        return h.width * h.height * 8
+
+    def dispatch(data, pt):
+        with torch.no_grad():  # grad mode is per thread
+            return _dispatch_decode(data, pt, device)
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+
+        def submit_next() -> bool:
+            nonlocal live_bytes
+            data = next(it, None)
+            if data is None:
+                return False
+            pt = PhaseTimer()
+            b = est_bytes(data)
+            inflight.append((time.time(), pt, pool.submit(dispatch, data, pt), b))
+            live_bytes += b
+            return True
+
+        more = submit_next()  # depth 1 is unconditional
+        while more and len(inflight) <= ahead and live_bytes <= DECODE_AHEAD_BYTES:
+            more = submit_next()
+        while inflight:
+            t0, pt, fut, b = inflight.popleft()
+            header, fins = fut.result()
+            img = _finalize_decode(header, fins, pt)
+            live_bytes -= b
+            while more and len(inflight) <= ahead and live_bytes <= DECODE_AHEAD_BYTES:
+                more = submit_next()
+            yield img, DecodeStats(elapsed=time.time() - t0, header=header,
+                                   phases=dict(pt.phases))
+
+
+def decode_pipelined(streams: List[bytes], mesh=None,
+                     device=None) -> List[tuple[np.ndarray, DecodeStats]]:
+    """List form of `decode_pipelined_iter`."""
+    return list(decode_pipelined_iter(streams, mesh, device=device))

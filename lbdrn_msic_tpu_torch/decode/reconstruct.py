@@ -9,13 +9,17 @@ already holds the base, adds it back (`_assemble_band`).  Colour-only
 streams upload the base band by band with its D-row halo
 (`_residual_band_planes_local`); streams with coordinate features, which
 need each pixel's global row, upload the whole base once
-(`_residual_band_planes`).
+(`_residual_band_planes`).  Row-chunked `lpc` base streams decode chunk
+by chunk on the host while the device computes the bands already decoded
+(`dispatch_streamed_lpc`).  `reconstruct` is the whole tile in one call,
+the reference's form of the same math.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -27,6 +31,38 @@ from lbdrn_msic_tpu_torch.models.siren import SirenParams, forward, pad_dim, pad
 from lbdrn_msic_tpu_torch.utils.transfer import put_image
 
 N_PLANES = 16  # residual bitplane slots (covers any K; planes >= K are zero)
+
+
+def reconstruct(base: torch.Tensor, params: SirenParams, fspec: FeatureSpec,
+                mspec: ModelSpec, K: int, H: int, W: int,
+                block_rows: int = 256) -> torch.Tensor:
+    """base: (C, H, W) integer tensor of the decoded base layer -> the
+    (C, H, W) image as int32 values in [0, 2^16): row blocks of the padded
+    plane through the network (exact `sin`), ``image = (base << K) +
+    round(pred * (2^K - 1))``, on the base's device."""
+    C = base.shape[0]
+    plane, scale = pad_plane(base, fspec.D)
+    padded_in = pad_dim(fspec.feature_dim(C))
+    R = min(block_rows, H)
+    lsb_peak = float(np.float32((1 << K) - 1))
+    out = base.to(torch.int32) << K
+    with torch.no_grad():
+        for b in range(-(-H // R)):
+            r0 = min(b * R, H - R)
+            x = row_block_features(plane, scale, r0, fspec, H, W, R)
+            pred = forward(params, pad_features(x, padded_in), mspec)
+            residual = torch.round(pred * lsb_peak).to(torch.int32)
+            skip = b * R - r0  # rows the clamped last block shares with its predecessor
+            out[:, r0 + skip : r0 + R] += residual.reshape(R, W, C).permute(2, 0, 1)[:, skip:]
+    return out
+
+
+def reconstruct_np(base: np.ndarray, params: SirenParams, fspec: FeatureSpec,
+                   mspec: ModelSpec, K: int, device: torch.device) -> np.ndarray:
+    """`reconstruct` of a host base layer on `device` -> (C, H, W) uint16."""
+    _, H, W = base.shape
+    out = reconstruct(put_image(base, device), params, fspec, mspec, K, H, W)
+    return out.cpu().numpy().astype(np.uint16)
 
 
 def _residual_band_planes(plane: torch.Tensor, scale: torch.Tensor, params: SirenParams,
@@ -200,3 +236,78 @@ def _make_finish(base: np.ndarray, pend, band_rows: int, K: int):
         return out
 
     return finish
+
+
+def dispatch_streamed_lpc(stream: bytes, params: SirenParams, fspec: FeatureSpec,
+                          mspec: ModelSpec, K: int, device: torch.device):
+    """Decode straight from a row-chunked (v2) `lpc` base stream: the host
+    decodes its chunks in a thread pool while device band k is queued as
+    soon as chunks k and k + 1 (its D-row bottom halo) are decoded, and two
+    threads fetch and assemble each band once it is queued.  The v2 header
+    carries the plane's max, so the feature scale is known before any
+    chunk is decoded: ``float32(1) / float32(max(mx, 1))``, the float32
+    that `dispatch_streamed` computes from the whole base.  Colour-only
+    feature sets; returns (base, finish) with `finish()` the assembled
+    uint16 image, bit-identical to `dispatch_streamed`'s, or None when the
+    stream is not v2-chunked or its chunks are shorter than D (the caller
+    takes the plain path)."""
+    from lbdrn_msic_tpu_torch.codecs import lpc
+
+    info = lpc.chunk_info(stream)
+    if info is None:
+        return None
+    C, H, W, itemsize, cr, nk, mx = info
+    # cr < D would put part of band k's bottom halo in chunk k + 2, which
+    # the dispatch does not wait for
+    if nk < 2 or H < cr or cr < fspec.D or fspec.use_coords:
+        return None
+    dtype = np.uint8 if itemsize == 1 else np.uint16
+    base = np.empty((C, H, W), dtype)
+    scale = torch.tensor(np.float32(1.0) / np.float32(max(mx, 1)), device=device)
+
+    def dec_one(ci, k):
+        r0 = k * cr
+        rows = min(cr, H - r0)
+        base[ci, r0 : r0 + rows] = lpc.decode_chunk(stream, ci, k, rows, W).astype(dtype)
+
+    out = np.empty((C, H, W), np.uint16)
+
+    def assemble(r0, skip, dev_planes):
+        # `skip`: rows the final band (r0 = H - cr) shares with the band
+        # before it, so two threads never write the same rows
+        got = list(dev_planes.cpu().numpy())
+        blk = np.ascontiguousarray(base[:, r0 : r0 + cr])
+        out[:, r0 + skip : r0 + cr] = _assemble_band(got, blk, K)[:, skip:]
+
+    # ctypes releases the GIL: the chunk decodes run on every host core
+    with concurrent.futures.ThreadPoolExecutor(max(2, os.cpu_count() or 2)) as dec_pool:
+        futs = [[dec_pool.submit(dec_one, ci, k) for ci in range(C)] for k in range(nk)]
+        asm_pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+        asm_futs = []
+        for k in range(nk):
+            for f in futs[k] + (futs[k + 1] if k + 1 < nk else []):
+                f.result()
+            r0 = min(k * cr, H - cr)  # uniform bands
+            band = put_image(_band_halo(base, r0, cr, fspec.D), device)
+            planes = _residual_band_planes_local(band, params, scale, fspec, mspec, K, W, cr)
+            asm_futs.append(asm_pool.submit(assemble, r0, max(0, k * cr - r0), planes))
+
+    def finish() -> np.ndarray:
+        try:
+            for f in asm_futs:
+                f.result()
+        finally:
+            asm_pool.shutdown()
+        return out
+
+    return base, finish
+
+
+def reconstruct_streamed(base: np.ndarray, params: SirenParams, fspec: FeatureSpec,
+                         mspec: ModelSpec, K: int, device: torch.device,
+                         n_bands: int = 8) -> np.ndarray:
+    """`dispatch_streamed` and its finish in one call: the bands' residuals
+    queued on the device, then fetched and assembled (K bits a subpixel
+    cross from the device)."""
+    with torch.no_grad():
+        return dispatch_streamed(base, params, fspec, mspec, K, device, n_bands)()

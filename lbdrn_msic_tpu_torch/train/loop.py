@@ -42,6 +42,7 @@ import torch
 from lbdrn_msic_tpu_torch import resolve_device
 from lbdrn_msic_tpu_torch.core.config import FeatureSpec, ModelSpec, TrainSpec
 from lbdrn_msic_tpu_torch.features.engine import (
+    _coord_features,
     banded_geometry,
     banded_window_features,
     build_banded_labels,
@@ -211,17 +212,26 @@ def _chunks(steps: int, k: int):
 
 
 def _epoch_batches(epoch: int, perms, generator, geo: Geometry, H: int, W: int,
-                   dev: torch.device, hw: Optional[Tuple[int, int]] = None):
+                   dev: torch.device, hw: Optional[Tuple[int, int]] = None, hws=None):
     """This epoch's permutation (injected, else drawn from `generator`),
     padded to whole batches -> (granule ids (steps, bpg), masks (steps, bs));
-    `hw` as `_granule_batches` takes it."""
+    `hw` as `_granule_batches` takes it.  `hws`: one real (height, width)
+    per expert, or None where the expert fills the grid: masks (steps, E,
+    bs), expert e's those `hw=hws[e]` gives."""
     if perms is not None:
         perm = torch.from_numpy(np.array(perms[epoch], dtype=np.int64))
     else:
         perm = torch.randperm(geo.n_g, generator=generator)
     pad = torch.full((geo.steps * geo.bpg - geo.n_g,), geo.n_g, dtype=torch.int64)
     perm = torch.cat([perm, pad]).view(geo.steps, geo.bpg).to(dev)
-    return _granule_batches(perm, geo.n_g, H * W, geo.g, geo.steps, geo.ng_row, W, hw)
+
+    def batches(hw_):
+        return _granule_batches(perm, geo.n_g, H * W, geo.g, geo.steps, geo.ng_row, W, hw_)
+
+    if hws is None:
+        return batches(hw)
+    by_hw = {h: batches(h) for h in dict.fromkeys(hws)}
+    return by_hw[hws[0]][0], torch.stack([by_hw[h][1] for h in hws], dim=1)
 
 
 def _granule_batches(perm: torch.Tensor, n_g: int, n: int, g: int, steps: int,
@@ -454,15 +464,16 @@ def _exact_expert_step(params, m_state, v_state, x, y, mask, lr, step, mspec, di
                        loss_out, mm_dtype=None):
     """The exact autograd step on each expert's slices in turn: what
     `fit_rate_experts(use_fused=False)` trains with (f32 whatever
-    `mm_dtype`, as the exact oracle)."""
+    `mm_dtype`, as the exact oracle).  mask: (B,) shared or (E, B)."""
     for e in range(x.shape[0]):
         reference_train_step(unstack_params(params, e), unstack_params(m_state, e),
-                             unstack_params(v_state, e), x[e], y[e], mask, lr, step,
+                             unstack_params(v_state, e), x[e], y[e],
+                             mask[e] if mask.dim() == 2 else mask, lr, step,
                              mspec, dim_out, loss_out=loss_out[e])
 
 
 def fit_rate_experts(
-    img: torch.Tensor,
+    img,
     Ks: Sequence[int],
     generator: Optional[torch.Generator],
     fspec: FeatureSpec,
@@ -476,30 +487,49 @@ def fit_rate_experts(
     staging: str = "full",
     multi_k: int = 0,
     mm_dtype: Optional[str] = None,
-    img_of: Optional[tuple] = None,
+    img_of: Optional[Sequence[int]] = None,
     hws=None,
     init: Optional[SirenParams] = None,
     perms: Optional[Sequence[np.ndarray]] = None,
     device=None,
 ) -> FitResult:
-    """Train one network per rate point K, all E = len(Ks) experts together.
+    """Train one network per (image, rate point), all E = len(Ks) experts
+    together.
 
-    img: (C, H, W) integer tensor of raw pixels.  Each expert stages its own
-    taps of the K-dependent MSB plane in `tap_dtypes` (default the smallest
-    dtype): its integer tap matrix ("full" staging) or its raw row taps
-    ("banded", over the W-padded granule grid, padding columns masked);
-    labels share one store of the raw pixels in the same granule layout,
-    LSB_K = pixel & (2^K - 1) applied per expert after the gather.  All
-    experts start from the same init and see the same
+    img: a (C, H, W) integer tensor of raw pixels, or a tuple of such
+    images (or an (I, C, H, W) stack) with `img_of[e]` the image of expert
+    e (default: every expert on image 0) — cross-image experts, so a
+    dataset encode fills the expert batch across images of one shape.
+    Each expert stages its own taps of its K-dependent MSB plane in
+    `tap_dtypes` (default the smallest dtype): its integer tap matrix
+    ("full" staging) or its raw row taps ("banded", over the W-padded
+    granule grid, padding columns masked).  Labels share one store of raw
+    pixels per image in use, in the same granule layout, gathered once per
+    image a step; LSB_K = pixel & (2^K - 1) is applied per expert after
+    the gather.  All experts start from the same init and see the same
     permutation each epoch, drawn as `fit` draws them (`init` / `perms`
     replace the draws when given), so expert e follows the trajectory that
-    `fit` would follow at K = Ks[e]: every step is one expert step for all
-    experts (`fused_expert_step`, kernel K2 on the card, whose expert e is
-    bit-identical to K1; or, with `use_fused=False`, the exact autograd
-    step per expert), and every `val_every` epochs each expert's
-    full-image MSE (from its tap matrix, or for "banded" from its plane by
-    the slice path: values bit-identical to `fit`'s evals) decides its own
-    strict-improvement best params.
+    `fit` would follow at K = Ks[e] on image img_of[e]: every step is one
+    expert step for all experts (`fused_expert_step`, kernel K2 on the
+    card, whose expert e is bit-identical to K1; or, with
+    `use_fused=False`, the exact autograd step per expert), and every
+    `val_every` epochs each expert's full-image MSE (from its tap matrix,
+    or by the slice path from its plane for "banded" and for coordinate
+    features: values bit-identical to `fit`'s evals) decides its own
+    strict-improvement best params.  The eval runs expert by expert, one
+    row block at a time (the JAX package's per-expert unrolled eval for
+    large scenes, EVAL_UNROLL_PX, is therefore the only form here).
+
+    `hws`: one real (height, width) per expert when H and W are a shape
+    bucket's and the images are bucket-padded (`codec._pad_to_bucket`):
+    each expert's pixels past its real shape are masked out of its
+    batches, by (E, B) step masks, and out of its eval, which normalizes
+    by its real pixel count; expert e is then `fit(hw=hws[e])`.  Per-expert
+    masks keep the per-step path (`multi_step_k`: K4 shares one mask).
+
+    Coordinate features (`fspec.use_coords`) are formed once per batch
+    from the granules' pixel indices and put in front of every expert's
+    colour taps (staged without coordinates), as `fit` stages them.
 
     `multi_k` (fused only; resolved by `multi_step_k`): k steps of every
     expert per `fused_expert_multi_step` call (kernel K4), each epoch split
@@ -508,55 +538,73 @@ def fit_rate_experts(
     `fit`: the fused expert steps' product operands.
 
     Returns a FitResult whose fields carry a leading expert axis.
-    Cross-image experts (`img_of`) and bucket masks (`hws`) are not ported
-    and raise.
     """
     if staging not in ("full", "banded"):
         raise ValueError(f"unknown staging mode {staging!r}")
-    if fspec.use_coords:
-        raise NotImplementedError(
-            "coordinate features in the rate sweep are not ported yet (ROADMAP: the sweep CLI)")
-    if img_of is not None:
-        raise NotImplementedError(
-            "cross-image experts (img_of) are not ported yet (ROADMAP: encode_dataset)")
-    if hws is not None:
-        raise NotImplementedError(
-            "per-expert bucket masks (hws) are not ported yet (ROADMAP: bucketing)")
+    if not fspec.use_colors:
+        raise ValueError("fit_rate_experts stages colour taps (callers: "
+                         "codec._experts_compatible)")
     dev = resolve_device(device)
     if use_fused is None:
         use_fused = dev.type == "cuda"
     step_fn = fused_expert_step if use_fused else _exact_expert_step
     E = len(Ks)
+    if isinstance(img, (tuple, list)):
+        imgs = list(img)
+    else:
+        imgs = list(img.unbind(0)) if img.dim() == 4 else [img]
+    img_of = tuple(img_of) if img_of is not None else (0,) * E
+    if len(img_of) != E or max(img_of) >= len(imgs):
+        raise ValueError(f"img_of {img_of} does not map {E} experts to {len(imgs)} images")
+    used = sorted(set(img_of))
+    per_expert_masks = hws is not None
+    if hws is not None:
+        # None where an expert fills the grid: its mask is the shared one
+        hws = [None if (int(h), int(w)) == (H, W) else (int(h), int(w)) for h, w in hws]
+        if len(hws) != E:
+            raise ValueError(f"hws has {len(hws)} entries for {E} experts")
+        if all(h is None for h in hws):
+            hws = None
     with torch.no_grad():
-        img = img.to(dev, torch.int32)
+        dev_imgs = {i: imgs[i].to(dev, torch.int32) for i in used}
         dim_in = fspec.feature_dim(C)
         padded_in = pad_dim(dim_in)
+        nc = fspec.num_coord_features()
+        fspec_nc = dataclasses.replace(fspec, use_coords=False)
         geo = _batch_geometry(tspec, H, W, staging)
         bs, g, n_g, bpg, steps = geo.bs, geo.g, geo.n_g, geo.bpg, geo.steps
         block_rows = feature_block_rows(H, W)
-        k = multi_step_k(multi_k, use_fused, E, bs, padded_in, steps, hws is not None)
+        k = multi_step_k(multi_k, use_fused, E, bs, padded_in, steps, per_expert_masks)
         banded = staging == "banded"
         if tap_dtypes is None:
-            max_img = int(img.max())
-            tap_dtypes = [row_taps_dtype(max_img >> K) if banded
-                          else tap_matrix_dtype(max_img >> K, fspec.relative) for K in Ks]
+            tap_dtypes = []
+            for e, K in enumerate(Ks):
+                mx = int(dev_imgs[img_of[e]].max()) >> K
+                tap_dtypes.append(row_taps_dtype(mx) if banded
+                                  else tap_matrix_dtype(mx, fspec.relative))
 
         scales, taps, planes = [], [], []
-        for K, dt in zip(Ks, tap_dtypes):
-            plane, scale = pad_plane(split_msb_lsb(img, K)[0], fspec.D)
+        for e, (K, dt) in enumerate(zip(Ks, tap_dtypes)):
+            plane, scale = pad_plane(split_msb_lsb(dev_imgs[img_of[e]], K)[0], fspec.D)
             scales.append(scale)
-            if banded:  # the plane stays for the eval's slice path
+            if banded or fspec.use_coords:  # the plane stays for the eval's slice path
                 planes.append(plane)
+            if banded:
                 taps.append(build_row_taps(plane, fspec, H, W, g, dt))
             else:
                 taps.append(build_tap_matrix(plane, fspec, H, W, dt, g=g))
-        # raw pixels, (n_g, g*C), and as an (H, W, C) image for the eval
-        if banded:
-            raw = build_banded_labels(img, H, W, g)
-            raw_img = raw.view(H, -1, C)[:, :W]
-        else:
-            raw = build_granule_labels(img, H, W, g)
-            raw_img = raw.view(-1, C)[: H * W].view(H, W, C)
+        # raw pixels of each image in use, (n_g, g*C), and as (H, W, C) for the eval
+        raw, raw_img = {}, {}
+        for i in used:
+            if banded:
+                raw[i] = build_banded_labels(dev_imgs[i], H, W, g)
+                raw_img[i] = raw[i].view(H, -1, C)[:, :W]
+            else:
+                raw[i] = build_granule_labels(dev_imgs[i], H, W, g)
+                raw_img[i] = raw[i].view(-1, C)[: H * W].view(H, W, C)
+        del dev_imgs
+        # each expert's slot among the images in use
+        slot = torch.tensor([used.index(i) for i in img_of], dtype=torch.int64, device=dev)
         kmasks = torch.tensor([(1 << K) - 1 for K in Ks], dtype=torch.int32, device=dev)
         kmasks = kmasks.view(E, 1, 1)
         lscales = torch.tensor([lsb_scale(K) for K in Ks], dtype=torch.float32, device=dev)
@@ -564,21 +612,34 @@ def fit_rate_experts(
         # the staged batches of one step, or of a k-step chunk: (k, E, ...)
         kb = max(k, 1)
         xbuf = torch.zeros((kb, E, bs, padded_in), dtype=torch.float32, device=dev)
-        lbuf = torch.empty((kb * bpg, g * C), dtype=torch.int32, device=dev)
+        lbuf = torch.empty((len(used), kb * bpg, g * C), dtype=torch.int32, device=dev)
         ybits = torch.empty((kb, E, bs, C), dtype=torch.int32, device=dev)
         ybuf = torch.empty((kb, E, bs, C), dtype=torch.float32, device=dev)
+        ar_g = torch.arange(g, device=dev)
 
         def stage(ids, kc):
             """The batches of kc steps (granule ids (kc * bpg,)) into the
             buffers' first kc entries."""
             for e in range(E):
-                out = xbuf[:kc, e, :, :dim_in]
+                out = xbuf[:kc, e, :, nc:dim_in]
                 if banded:
-                    banded_window_features(taps[e], scales[e], ids, fspec, H, W, g, out=out)
+                    banded_window_features(taps[e], scales[e], ids, fspec_nc, H, W, g, out=out)
                 else:
                     staged_features(taps[e], scales[e], ids, out=out)
-            torch.index_select(raw, 0, ids, out=lbuf[: kc * bpg])
-            torch.bitwise_and(lbuf[: kc * bpg].view(kc, 1, bs, C), kmasks, out=ybits[:kc])
+            if nc:  # the granules' pixel coordinates, shared by every expert
+                if banded:
+                    ii = (ids // geo.ng_row)[:, None].expand(-1, g)
+                    jj = (ids % geo.ng_row * g)[:, None] + ar_g
+                else:
+                    pix = ids[:, None] * g + ar_g
+                    ii, jj = pix // W, pix % W
+                coords = _coord_features(ii.reshape(-1), jj.reshape(-1), H, W, fspec)
+                xbuf[:kc, :, :, :nc] = coords.view(kc, 1, bs, nc)
+            for s, i in enumerate(used):  # one label gather per image
+                torch.index_select(raw[i], 0, ids, out=lbuf[s, : kc * bpg])
+            rows = lbuf[:, : kc * bpg].view(len(used), kc, bs, C)
+            rows = rows.transpose(0, 1) if len(used) == 1 else rows[slot].transpose(0, 1)
+            torch.bitwise_and(rows, kmasks, out=ybits[:kc])
             ybuf[:kc].copy_(ybits[:kc]).mul_(lscales)
 
         # the eval's inputs and labels, one row block at a time
@@ -587,7 +648,7 @@ def fit_rate_experts(
 
         def x_rows(e, r0):
             xe = xeval[:, :dim_in]
-            if banded:
+            if banded or fspec.use_coords:
                 xe.copy_(row_block_features(planes[e], scales[e], r0, fspec, H, W, block_rows))
             else:
                 xe.copy_(taps[e].view(-1, dim_in)[r0 * W : r0 * W + nb])
@@ -595,7 +656,7 @@ def fit_rate_experts(
             return xeval
 
         def y_rows(e, r0):
-            rows = raw_img[r0 : r0 + block_rows].reshape(-1, C)
+            rows = raw_img[img_of[e]][r0 : r0 + block_rows].reshape(-1, C)
             return (rows & kmasks[e]).to(torch.float32) * lscales[e]
 
         if init is None:
@@ -610,7 +671,7 @@ def fit_rate_experts(
         best_mse, best_epoch = [np.float32(1e6)] * E, [-1] * E
         count = 0
         for epoch in range(tspec.epochs):
-            gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev)
+            gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev, hws=hws)
             if k:
                 for s0, kc in _chunks(steps, k):
                     stage(gi[s0 : s0 + kc].reshape(-1), kc)
@@ -638,7 +699,7 @@ def fit_rate_experts(
                     mse = float(blocks_mse(
                         unstack_params(params, e), lambda r0: x_rows(e, r0),
                         lambda r0: y_rows(e, r0), mspec, H, W, C, block_rows,
-                        fast_act=use_fused))
+                        fast_act=use_fused, hw=hws[e] if hws is not None else None))
                     if mse < best_mse[e]:  # strict improvement, per expert
                         for b_, p_ in zip(best.leaves(), params.leaves()):
                             b_[e].copy_(p_[e])

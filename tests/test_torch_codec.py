@@ -1,6 +1,7 @@
 """Port codec vs the JAX package's: headers byte-identical, streams
 cross-decode both ways, port streams deterministic."""
 
+import dataclasses
 import struct
 import warnings
 
@@ -130,13 +131,15 @@ def test_unported_paths_raise(scene, monkeypatch):
     full, _ = codec.encode_image(scene, cfg, device="cpu")
     assert full == cached
     assert np.array_equal(codec.decode_stream(full, device="cpu")[0] >> K, scene >> K)
-    # coordinate features encode (and decode through the full-plane path);
-    # the rate sweep's expert loop still has none
+    # coordinate features encode (and decode through the full-plane path),
+    # and the rate sweep's expert loop trains them: each point is the
+    # `encode_image` stream at its K
     coords = CodecConfig(K=K, features=FeatureSpec(use_coords=True), train=cfg.train,
                          base_codec="lpc")
     stream, _ = codec.encode_image(scene, coords, device="cpu")
     assert np.array_equal(codec.decode_stream(stream, device="cpu")[0] >> K, scene >> K)
-    with pytest.raises(NotImplementedError):
-        codec.fit_rate_experts(torch.from_numpy(scene.astype(np.int32)), [3, K], None,
-                               coords.features, coords.model, coords.train, 64, 64, 4,
-                               device="cpu")
+    coords3 = dataclasses.replace(coords, K=3)
+    assert codec._experts_compatible([coords3, coords])
+    points = codec.encode_rate_points(scene, [coords3, coords], device="cpu")
+    assert points[1][0] == stream
+    assert points[0][0] == codec.encode_image(scene, coords3, device="cpu")[0]

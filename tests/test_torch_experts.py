@@ -309,9 +309,19 @@ def test_unported_sweep_paths_raise(scene, monkeypatch):
     t = cfgs[0].train
     args = (torch.from_numpy(scene.astype(np.int32)), (4, 5), torch.Generator(),
             FeatureSpec(), ModelSpec(), t, 64, 56, 4)
-    for kw in ({"img_of": (0, 0)}, {"hws": object()}):
-        with pytest.raises(NotImplementedError):
-            loop.fit_rate_experts(*args, device="cpu", **kw)
+    # cross-image experts and per-expert bucket masks are ported: both
+    # experts mapped onto the one image, and real shapes that fill the
+    # grid, are the default expert fit bit for bit
+    ref = loop.fit_rate_experts(*args[:2], torch.Generator().manual_seed(1), *args[3:],
+                                device="cpu")
+    for kw in ({"img_of": (0, 0)}, {"hws": [(64, 56), (64, 56)]},
+               {"img_of": (0, 0), "hws": torch.tensor([[64, 56], [64, 56]])}):
+        got = loop.fit_rate_experts(*args[:2], torch.Generator().manual_seed(1), *args[3:],
+                                    device="cpu", **kw)
+        assert torch.equal(got.step_losses, ref.step_losses), kw
+        assert got.best_mse == ref.best_mse and got.best_epoch == ref.best_epoch, kw
+    with pytest.raises(ValueError):
+        loop.fit_rate_experts(*args, img_of=(0, 1), device="cpu")
     # the banded expert fit is ported: W % 8 == 0, so the same networks as
     # the full one
     full, banded = (loop.fit_rate_experts(*args[:2], torch.Generator().manual_seed(1), *args[3:],

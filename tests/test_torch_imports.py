@@ -47,6 +47,9 @@ PORT_MODULES = [
     "lbdrn_msic_tpu_torch.cli.encode",
     "lbdrn_msic_tpu_torch.cli.decode",
     "lbdrn_msic_tpu_torch.cli.summarize",
+    "lbdrn_msic_tpu_torch.cli.sweep",
+    "lbdrn_msic_tpu_torch.parallel",
+    "lbdrn_msic_tpu_torch.parallel.distributed",
     "chip_smoke",
 ]
 
