@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --only cli   # encode/decode/rd and cli phases only
     python3 chip_smoke.py --only dataset   # the dataset and sweep_cli phases only
+    python3 chip_smoke.py --only flagship  # the tiles and flagship phases only
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
                                        # one encode, one sweep, the fit at
                                        # multi_k 0 and 16, one epoch of the
@@ -128,6 +129,25 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            streams, the decode logs' PSNR the dataset decode's; a second run
            launches nothing; --pipeline and the per-job path on scene 42 at
            K 5..6: 2 x 5120 K1 launches each, the same bytes
+  tiles    split_ratio 2, each run with the counts zeroed before it: (a) the
+           bench scene, four 1024^2 "cached" tiles, with the double-buffering
+           gate open (tiles 2-4 uploaded on a side stream while the one before
+           trains) and forced shut, in the order open, shut, shut, open: 5120
+           K1 launches each, the streams byte-identical, the decode
+           MSB-exact, both orders' seconds; (b) the staging phase's GF-2
+           scene, four "full" tiles, gate open: epochs x steps summed over
+           the tiles (72560) K1 launches, MSB-exact, seconds and peak device
+           memory beside split_ratio 1's "full" K=5 encode
+  flagship `scripts.flagship_workload.run` on GF2_D (7605x7815x4), WFI_A
+           (6000^2x8) and PMS_A (6000^2x4) at K 3..6, e=2: bucketed
+           `encode_dataset` a scene, `decode_pipelined_iter`, summarize, the
+           Baseline CSV, the BD table; every stream MSB-lossless, K2
+           launched epochs x steps per chunk summed over the chunks (K1
+           never), each scene's K=5 stream `encode_image(bucket=True)`'s
+           byte for byte (else within 0.1 dB), those three streams'
+           pipelined decode bit for bit `decode_stream`, BD-PSNR > 0 and
+           BD-Rate < 0 against Baseline in every group; staging, chunks,
+           seconds a job per group, peak device memory
 Then the whole script's seconds, the kernels line (K1-K4, K5 per variant;
 K1's and K2's launches_by_path per path), the card line, and the final
 status line.  Exits non-zero without
@@ -290,11 +310,16 @@ def kernel_entry(name: str, replaces: str, card: str, ops, nbytes: float,
     }
 
 
+# the 8-band WFI scenes' feature width (25 a band at the default
+# features): F_pad 256 beside C = 8, the flagship's K2 shape
+WFI_D_IN = 200
+
+
 def phase_kernels(card: str):
     import numpy as np
     import torch
 
-    from lbdrn_msic_tpu_torch.core.config import ModelSpec
+    from lbdrn_msic_tpu_torch.core.config import FeatureSpec, ModelSpec
     from lbdrn_msic_tpu_torch.models.siren import init_params, pad_dim
     from lbdrn_msic_tpu_torch.ops import fused_step as fs
 
@@ -303,6 +328,7 @@ def phase_kernels(card: str):
     F = pad_dim(dim_in)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    assert FeatureSpec().feature_dim(8) == WFI_D_IN
 
     def inputs(b, masked, c=C, d_in=dim_in):
         x = np.zeros((b, pad_dim(d_in)), np.float32)
@@ -323,14 +349,19 @@ def phase_kernels(card: str):
 
     # the bench widths, full and ragged/masked; one wider layer set (bc=128,
     # nl=3, C=8), whose weights do not fit in shared memory beside a CTA's
-    # rows, so the kernel reads them from global memory; and the coordinate
-    # features' input width (150 -> F_pad 256, 32 rows a CTA) of the cli phase
+    # rows, so the kernel reads them from global memory; the coordinate
+    # features' input width (150 -> F_pad 256, 32 rows a CTA) of the cli
+    # phase; and the 8-band WFI scenes' shape at the bench widths (F = 200
+    # -> F_pad 256, C = 8) of the flagship's encode_image checks, whole
+    # and under a bucket's pad mask
     cases, max_err = [], 0.0
     for name, b, masked, spec, c, d_in in (
             ("full", B, False, mspec, C, dim_in),
             ("ragged_masked", B - 37, True, mspec, C, dim_in),
             ("wide_ragged_masked", 1000, True, ModelSpec(128, 3), 8, dim_in),
-            ("coords_embedding_masked", B, True, mspec, C, 150)):
+            ("coords_embedding_masked", B, True, mspec, C, 150),
+            ("wfi_c8_f256", B, False, mspec, 8, WFI_D_IN),
+            ("wfi_c8_f256_masked", B, True, mspec, 8, WFI_D_IN)):
         x, y, mask = inputs(b, masked, c, d_in)
         p0 = init(spec, c, d_in)
         z0 = p0.map(torch.zeros_like)
@@ -384,12 +415,23 @@ def phase_kernels(card: str):
     coords = kernel_entry("", "", card, ops_c, bytes_c, cuda_ms(
         lambda: fs.fused_train_step(cp, cm, cv, xc, yc, mc, 1e-3, 1, mspec, C), 300), cuda_ms(
         lambda: fs.fused_train_step_plain(cp, cm, cv, xc, yc, mc, 1e-3, 1, mspec, C), 30), 0.0)
+    # and at the WFI scenes' (C = 8, F_pad 256, a bucket's pad mask)
+    xw, yw, mw = inputs(B, True, 8, WFI_D_IN)
+    pw = init(mspec, 8, WFI_D_IN)
+    zw = pw.map(torch.zeros_like)
+    wp, wm, wv = clone(pw), clone(zw), clone(zw)
+    P_w = sum(w.numel() + b.numel() for w, b in zip(pw.weights, pw.biases))
+    ops_w, bytes_w = step_cost(B, [pad_dim(WFI_D_IN)] + [w.shape[1] for w in pw.weights], P_w)
+    wfi = kernel_entry("", "", card, ops_w, bytes_w, cuda_ms(
+        lambda: fs.fused_train_step(wp, wm, wv, xw, yw, mw, 1e-3, 1, mspec, 8), 300), cuda_ms(
+        lambda: fs.fused_train_step_plain(wp, wm, wv, xw, yw, mw, 1e-3, 1, mspec, 8), 30), 0.0)
     emit({"phase": "kernels", "cases": cases, "chain_losses": losses,
           "chain_param_drift": drift, "ops": ops, "bytes": nbytes,
           "ms": ms, "passes": passes, "pass_2_after_pass_1_ms": ms - pass1_ms(passes),
           "design": FUSED_STEP_DESIGN, "plain_ms": plain_ms,
           "bound_ms": kernel["bound_ms"],
           "coords_f256": {k: coords[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+          "wfi_c8_f256": {k: wfi[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
           "card": card})
     return kernel
 
@@ -428,18 +470,24 @@ def phase_expert_kernels(card: str):
                              for e in range(n_exp)]).to(dev)
 
     # the sweep's shape, full; ragged with per-expert masks (the bucketed
-    # dataset's (E, B) masks); the wide layer set; and the coordinate
+    # dataset's (E, B) masks); the wide layer set; the coordinate
     # features' width (150 -> F_pad 256) with per-expert masks, the
-    # coordinate sweep's (the dataset phase's (d))
+    # coordinate sweep's (the dataset phase's (d)); and the WFI scenes'
+    # shape at the bench widths (F = 200 -> F_pad 256, C = 8) with bucket
+    # pad masks: E = 1 with a (1, B) mask, as the flagship's one-expert
+    # chunks run it, and E = 4
     cases, max_err = [], 0.0
     for name, b, dens, spec, c, d_in in (
             ("full", B, None, mspec, C, dim_in),
             ("ragged_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C, dim_in),
             ("wide_ragged_per_expert_masks", 1000, (1.0, 0.8, 0.5, 0.0), ModelSpec(128, 3), 8,
              dim_in),
-            ("coords_f256_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C, 150)):
-        x, y, mask = inputs(b, dens, c, d_in)
-        p0 = init(spec, c, d_in)
+            ("coords_f256_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C, 150),
+            ("wfi_c8_f256_e1_mask", B, (0.95,), mspec, 8, WFI_D_IN),
+            ("wfi_c8_f256_per_expert_masks", B, (0.95, 0.8, 0.5, 0.2), mspec, 8, WFI_D_IN)):
+        n_exp = E if dens is None else len(dens)
+        x, y, mask = inputs(b, dens, c, d_in, n_exp)
+        p0 = init(spec, c, d_in, n_exp)
         z0 = p0.map(torch.zeros_like)
         k = (clone(p0), clone(z0), clone(z0))
         p = (clone(p0), clone(z0), clone(z0))
@@ -449,7 +497,7 @@ def phase_expert_kernels(card: str):
         err, n_ill = check_step(k, kl, p, pl)
         max_err = max(max_err, err)
         # expert e of K2 is K1 on expert e's slices, bit for bit
-        for e in range(E):
+        for e in range(n_exp):
             one = tuple(unstack_params(st, e).map(torch.clone) for st in (p0, z0, z0))
             *_, l1 = fs.fused_train_step(*one, x[e], y[e], mask[e] if mask.dim() == 2 else mask,
                                          1e-3, 1, spec, c)
@@ -460,21 +508,21 @@ def phase_expert_kernels(card: str):
                     assert torch.equal(a, r), (name, e)
         rows, staged = fs.cta_layout([pad_dim(d_in)] + [w.shape[-1] for w in p0.weights],
                                      fs._smem_optin)
-        cases.append({"case": name, "E": E, "B": b, "F_pad": pad_dim(d_in),
+        cases.append({"case": name, "E": n_exp, "B": b, "F_pad": pad_dim(d_in),
                       "widths": [spec.base_channel, spec.num_layers, c],
                       "mask_densities": dens, "rows_per_cta": rows, "weights_in_smem": staged,
                       "loss": kl.tolist(), "loss_plain": pl.tolist(),
                       "max_abs_err_params": err, "params_with_grad_below_1e-6": n_ill,
                       "bit_identical_to_k1_per_expert": True})
 
-    def timed(n_exp, d_in, densities):
+    def timed(n_exp, d_in, densities, c=C):
         """K2's and its plain version's ms a step, and the bound, at
-        (n_exp, B, pad_dim(d_in)); the state keeps training (lr is
-        irrelevant)."""
-        x, y, mask = inputs(B, densities, C, d_in, n_exp)
-        tp = init(mspec, C, d_in, n_exp)
+        (n_exp, B, pad_dim(d_in)) and c channels; the state keeps
+        training (lr is irrelevant)."""
+        x, y, mask = inputs(B, densities, c, d_in, n_exp)
+        tp = init(mspec, c, d_in, n_exp)
         tm, tv = tp.map(torch.zeros_like), tp.map(torch.zeros_like)
-        step = lambda f: f(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C)
+        step = lambda f: f(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, c)
         ms = cuda_ms(lambda: step(fs.fused_expert_step), 300)
         plain = cuda_ms(lambda: step(fs.fused_expert_step_plain), 30)
         P = sum(w[0].numel() + b[0].numel() for w, b in zip(tp.weights, tp.biases))
@@ -490,12 +538,16 @@ def phase_expert_kernels(card: str):
     # per-expert masks
     e8 = timed(8, dim_in, None)[0]
     f256 = timed(E, 150, (1.0, 0.8, 0.5, 0.2))[0]
+    # the flagship's WFI chunks (E = 1, C = 8, F_pad 256, a pad mask), and E = 4
+    wfi1 = timed(1, WFI_D_IN, (0.95,), 8)[0]
+    wfi4 = timed(E, WFI_D_IN, (0.95, 0.8, 0.5, 0.2), 8)[0]
     pick = lambda k: {key: k[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
     emit({"phase": "kernels_experts", "cases": cases, "E": E, "ops": ops,
           "bytes": nbytes, "ms": kernel["ms"], "passes": passes,
           "pass_2_after_pass_1_ms": kernel["ms"] - pass1_ms(passes), "design": FUSED_STEP_DESIGN,
           "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
-          "e8": pick(e8), "coords_f256": pick(f256), "card": card})
+          "e8": pick(e8), "coords_f256": pick(f256), "wfi_c8_f256_e1": pick(wfi1),
+          "wfi_c8_f256_e4": pick(wfi4), "card": card})
     return kernel
 
 
@@ -1421,6 +1473,7 @@ def phase_staging(profile: bool, k1, k2):
             cfg = CodecConfig(K=K_, base_codec="lpc", train=TrainSpec(sample_granule=8, epochs=1))
             secs = counted_run(lambda: encode_image(big, cfg))[1]
             phase_profile(f"gf2 encode e=1 {want}", lambda: encode_image(big, cfg), [secs])
+    return {"big": big, "k5_full": enc[5]}
 
 
 def phase_cli(k1, encoded, img, crop_hw=(1900, 2000)):
@@ -1648,13 +1701,13 @@ def phase_dataset(profile: bool, k1, k2, sweep_solos=None):
 
     # (a) bench.py's dataset cell (bench.py:183-193)
     jobs_a = [(scenes[s], cfgs[K]) for s in (42, 43) for K in Ks]
-    plan = codec._plan_group([scenes[42], scenes[43]],
-                             [(i, cfgs[K]) for i in range(2) for K in Ks], False, 16)
+    t0 = time.time()
+    warm_res = codec.encode_dataset(jobs_a)
+    warm_s = time.time() - t0
+    warm = [s for s, _ in warm_res]
+    plan = warm_res[0][1].plan  # the group's plan, as the encode ran it
     assert plan.staging == "full" and plan.chunks == [list(range(8))], plan
     assert plan.budget == codec.STAGE_BUDGET_BYTES, plan.budget
-    t0 = time.time()
-    warm = [s for s, _ in codec.encode_dataset(jobs_a)]
-    warm_s = time.time() - t0
     secs, peaks = [], []
     for _ in range(3):
         res, sec, launches, peak = counted_run(lambda: codec.encode_dataset(jobs_a))
@@ -1853,13 +1906,246 @@ def phase_sweep_cli(k1, k2, data):
           "total_seconds": time.time() - t_phase})
 
 
+# the tiles phase's GF-2 encodes at split_ratio 2: four of them (the gate
+# open and shut in turn), so fewer epochs than the staging phase's 10 keep
+# the script's time; the gate hides a fixed cost, a tile's upload and prep
+GF2_TILES_EPOCHS = 4
+
+
+def phase_tiles(k1, gf2=None):
+    """Multi-tile encodes (split_ratio 2), each run with the counts zeroed
+    before it: (a) the bench scene, four 1024^2 "cached" tiles, encoded
+    with the double-buffering gate open (tiles 2-4 uploaded aside while
+    their predecessor trains) and forced shut, in the order open, shut,
+    shut, open: the streams byte-identical, 5120 K1 launches each, the
+    decode MSB-exact; (b) GF-2 (7605x7815x4, seed 42,
+    e=GF2_TILES_EPOCHS), four "full" tiles, where a tile's upload and
+    prep is largest, with the gate open and shut in the same order: the
+    streams byte-identical, epochs x steps summed over the tiles K1
+    launches each, MSB-exact, seconds and peak device memory beside the
+    split_ratio 1 "full" K=5 encode (`gf2`: the staging phase's image and
+    row, at e=10; else both made here, the encode at (b)'s epochs)."""
+    import numpy as np
+
+    from lbdrn_msic_tpu_torch import codec
+    from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
+    from lbdrn_msic_tpu_torch.eval.metrics import psnr
+    from lbdrn_msic_tpu_torch.io.tiles import tile_bounds
+    from lbdrn_msic_tpu_torch.train.loop import _batch_geometry
+    from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+    t_phase = time.time()
+    train = TrainSpec(sample_granule=8, epochs=10)
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+
+    def staging_of(img, cfg):
+        mx = int(img.max()) >> cfg.K
+        return [codec.pick_staging(h, w, img.shape[0], mx, cfg.features, cfg.train)[0]
+                for _, _, h, w in tile_bounds(*img.shape[1:], cfg.split_ratio)]
+
+    def want_launches(img, cfg):
+        """K1 launches of one encode: epochs x steps, summed over the tiles."""
+        return sum(cfg.train.epochs * _batch_geometry(cfg.train, h, w, st).steps
+                   for (_, _, h, w), st in zip(tile_bounds(*img.shape[1:], cfg.split_ratio),
+                                               staging_of(img, cfg)))
+
+    def encode(img, cfg, gate_open):
+        aside = []
+        with recording(codec, "_upload_tile_aside", aside):
+            if gate_open:
+                out = counted_run(lambda: codec.encode_image(img, cfg))
+            else:
+                with replaced(codec, "OVERLAP_BUDGET_BYTES", 0):
+                    out = counted_run(lambda: codec.encode_image(img, cfg))
+        assert len(aside) == (3 if gate_open else 0), (gate_open, len(aside))
+        return out
+
+    # (a) the bench scene at split_ratio 2
+    img = synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42)
+    cfg = CodecConfig(K=5, split_ratio=2, base_codec="lpc", train=train)
+    assert codec.tiles_overlap(img.shape, int(img.max()), 2, cfg)
+    n_a = want_launches(img, cfg)
+    assert n_a == 5120 and staging_of(img, cfg) == ["cached"] * 4, (n_a, staging_of(img, cfg))
+    warm = codec.encode_image(img, cfg)[0]
+    runs = {True: [], False: []}
+    for gate_open in (True, False, False, True):
+        (stream, stats), secs, launches, peak = encode(img, cfg, gate_open)
+        assert launches == [n_a, 0], (gate_open, launches)
+        assert stream == warm, f"gate {'open' if gate_open else 'shut'} gave another stream"
+        assert sum(t.train_time for t in stats.tiles) <= stats.elapsed
+        runs[gate_open].append({"seconds": secs, "peak_device_gb": peak, "phases": stats.phases,
+                                "tile_train_s": [t.train_time for t in stats.tiles]})
+    rec, _ = codec.decode_stream(warm)
+    assert rec.shape == img.shape and np.array_equal(rec >> 5, img >> 5)
+    k1["launches_by_path"]["tiles_bench_sr2"] = n_a
+    a = {"shape": list(img.shape), "split_ratio": 2, "staging": staging_of(img, cfg),
+         "launches_k1": n_a, "order": "open, shut, shut, open",
+         "overlapped": runs[True], "serial": runs[False],
+         "overlapped_s": [r["seconds"] for r in runs[True]],
+         "serial_s": [r["seconds"] for r in runs[False]],
+         "identical": True, "psnr_db": psnr(img, rec), "bpsp": stats.bpsp, "sha256": sha(warm)}
+
+    # (b) GF-2 at split_ratio 2, the gate open and shut in turn
+    t0 = time.time()
+    train_b = TrainSpec(sample_granule=8, epochs=GF2_TILES_EPOCHS)
+    if gf2 is None:
+        big = synth_scene(7605, 7815, channels=4, effective_bits=12, seed=42, fast=True)
+        cfg1 = CodecConfig(K=5, base_codec="lpc", train=train_b)
+        (_, st1), secs1, _, peak1 = counted_run(lambda: codec.encode_image(big, cfg1))
+        sr1 = {"seconds": secs1, "peak_device_gb": peak1, "staging": st1.tiles[0].staging,
+               "epochs": train_b.epochs, "source": "encoded in this phase"}
+    else:
+        big = gf2["big"]
+        sr1 = {"seconds": gf2["k5_full"]["seconds"],
+               "peak_device_gb": gf2["k5_full"]["peak_device_gb"],
+               "staging": gf2["k5_full"]["staging"], "epochs": 10,
+               "source": "the staging phase's (b)"}
+    cfg = CodecConfig(K=5, split_ratio=2, base_codec="lpc", train=train_b)
+    assert codec.tiles_overlap(big.shape, int(big.max()), 2, cfg)
+    n_b = want_launches(big, cfg)
+    runs_b, first = {True: [], False: []}, None
+    for gate_open in (True, False, False, True):
+        (stream, stats), secs, launches, peak = encode(big, cfg, gate_open)
+        assert launches == [n_b, 0], (gate_open, launches, n_b)
+        assert [t.staging for t in stats.tiles] == staging_of(big, cfg) == ["full"] * 4, \
+            stats.tiles
+        first = stream if first is None else first
+        assert stream == first, f"gate {'open' if gate_open else 'shut'} gave another stream"
+        runs_b[gate_open].append({"seconds": secs, "peak_device_gb": peak,
+                                  "phases": stats.phases,
+                                  "tile_train_s": [t.train_time for t in stats.tiles]})
+    (rec, _), dec_s, dl, dec_peak = counted_run(lambda: codec.decode_stream(first))
+    assert dl == [0, 0] and rec.shape == big.shape and np.array_equal(rec >> 5, big >> 5)
+    k1["launches_by_path"]["tiles_gf2_sr2"] = n_b
+    b = {"shape": list(big.shape), "split_ratio": 2, "epochs": train_b.epochs,
+         "tiles": [list(t[2:]) for t in tile_bounds(*big.shape[1:], 2)],
+         "staging": [t.staging for t in stats.tiles],
+         "staged_bytes": [t.staged_bytes for t in stats.tiles],
+         "launches_k1": n_b, "order": "open, shut, shut, open",
+         "overlapped": runs_b[True], "serial": runs_b[False],
+         "overlapped_s": [r["seconds"] for r in runs_b[True]],
+         "serial_s": [r["seconds"] for r in runs_b[False]], "identical": True,
+         "psnr_db": psnr(big, rec), "bpsp": stats.bpsp, "decode_s": dec_s,
+         "decode_peak_device_gb": dec_peak, "sha256": sha(first), "split_ratio_1_k5": sr1,
+         "seconds_incl_setup": time.time() - t0}
+    emit({"phase": "tiles", "gate_budget_bytes": codec.OVERLAP_BUDGET_BYTES,
+          "a_bench_sr2": a, "b_gf2_sr2": b, "total_seconds": time.time() - t_phase})
+
+
+# the flagship phase's scenes (one of each group at its real shape), rate
+# points (the cubic BD fit needs four) and epochs
+FLAGSHIP_SCENES = ("GF2_D", "WFI_A", "PMS_A")
+FLAGSHIP_KS = (3, 4, 5, 6)
+FLAGSHIP_EPOCHS = 2
+
+
+def phase_flagship(k1, k2):
+    """The flagship workload's composition on one scene of each group at
+    its real shape (`scripts.flagship_workload.run`: bucketed dataset
+    encode, pipelined decode, summarize, Baseline, BD table), with the
+    counts zeroed before it: every stream MSB-lossless; K2 launched
+    epochs x steps per chunk, summed over the chunks (K1 never); each
+    scene's K=5 stream byte-identical to `encode_image(bucket=True)`'s
+    (else within 0.1 dB); those three streams' pipelined decode bit for
+    bit `decode_stream`; in every group BD-PSNR > 0 and BD-Rate < 0
+    against Baseline.  Works in a temporary directory (about 1.1 GB of
+    TIFFs), removed after."""
+    import tempfile
+
+    import numpy as np
+
+    from lbdrn_msic_tpu_torch import codec
+    from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
+    from lbdrn_msic_tpu_torch.eval.metrics import psnr
+    from lbdrn_msic_tpu_torch.scripts import flagship_workload as fw
+    from lbdrn_msic_tpu_torch.train.loop import _batch_geometry
+
+    t_phase = time.time()
+    scenes = [row for row in fw.SCENES if row[0] in FLAGSHIP_SCENES]
+    ks = list(FLAGSHIP_KS)
+    train = TrainSpec(sample_granule=8, epochs=FLAGSHIP_EPOCHS)
+    tmp = tempfile.mkdtemp(prefix="flagship_")
+    try:
+        with recording(codec, "fit_rate_experts", []) as calls:
+            r, secs, launches, peak = counted_run(
+                lambda: fw.run(scenes, ks, FLAGSHIP_EPOCHS, tmp))
+        assert r["n_lossless"] == r["n_jobs"] == len(scenes) * len(ks), r["n_lossless"]
+        # K2: one launch a step per chunk, epochs x steps at the chunk's
+        # bucket shape and staging, by the plan each scene's encode ran
+        want = 0
+        plans = r["plans"]
+        assert set(plans) == set(FLAGSHIP_SCENES), plans
+        for stem, plan in plans.items():
+            steps = _batch_geometry(train, *plan["bucket"], plan["staging"]).steps
+            want += len(plan["chunks"]) * train.epochs * steps
+            plan["steps_per_epoch"] = steps
+        assert launches == [0, want], (launches, want)
+        assert len(calls) == sum(len(p["chunks"]) for p in plans.values()), len(calls)
+        k2["launches_by_path"]["flagship"] = want
+        for name in r["groups"]:
+            assert r["bd_psnr"][name] > 0 and r["bd_rate"][name] < 0, (name, r["bd_rate"],
+                                                                      r["bd_psnr"])
+
+        # each scene's K=5 stream against encode_image(bucket=True)
+        bins = {(stem, K): path for path, stem, K in r["bins"]}
+        cfg5 = CodecConfig(K=5, base_codec="lpc", train=train)
+        k5, k5_streams, n_k1 = [], [], 0
+        for stem, C, H, W in scenes:
+            img = r["imgs"][stem]
+            with open(bins[(stem, 5)], "rb") as f:
+                got = f.read()
+            (ref, st), ref_s, ref_launches, ref_peak = counted_run(
+                lambda: codec.encode_image(img, cfg5, bucket=True))
+            Hb, Wb = codec.bucket_dims(H, W, cfg5.features.D)
+            want_k1 = train.epochs * _batch_geometry(train, Hb, Wb, st.tiles[0].staging).steps
+            assert ref_launches == [want_k1, 0], (stem, ref_launches, want_k1)
+            n_k1 += ref_launches[0]
+            same = got == ref
+            d_db = 0.0
+            if not same:  # "banded" and "full" batches: RD-equivalent only
+                d_db = (psnr(img, codec.decode_stream(got)[0])
+                        - psnr(img, codec.decode_stream(ref)[0]))
+                assert abs(d_db) < 0.1, (stem, d_db)
+            k5.append({"scene": stem, "identical_to_encode_image_bucket": same,
+                       "psnr_minus_encode_image_db": d_db,
+                       "encode_image_staging": st.tiles[0].staging,
+                       "dataset_staging": plans[stem]["staging"],
+                       "encode_image_s": ref_s, "encode_image_peak_device_gb": ref_peak,
+                       "encode_image_launches_k1": ref_launches[0]})
+            k5_streams.append(got)
+        k1["launches_by_path"]["flagship_encode_image_k5"] = n_k1
+        (piped, pipe_s, pl, _) = counted_run(
+            lambda: list(codec.decode_pipelined_iter(iter(k5_streams))))
+        assert pl == [0, 0]
+        for (stem, _, _, _), stream, (rec, _) in zip(scenes, k5_streams, piped):
+            assert np.array_equal(rec, codec.decode_stream(stream)[0]), stem
+        with open(r["raw"]) as f:
+            raw_lines = f.read().splitlines()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "flagship", "scenes": [list(s) for s in scenes], "Ks": ks,
+          "epochs": FLAGSHIP_EPOCHS, "seconds": secs, "peak_device_gb": peak,
+          "launches_k1": launches[0], "launches_k2": launches[1],
+          "chunk_experts": {stem: [len(c) for c in p["chunks"]] for stem, p in plans.items()},
+          "plans": plans, "groups": r["groups"],
+          "msb_lossless": f"{r['n_lossless']}/{r['n_jobs']}",
+          "encode_s": r["encode_s"], "encode_mpx_s": r["encode_mpx_s"],
+          "decode_s": r["decode_s"], "decode_mpx_s": r["decode_mpx_s"],
+          "peak_encode_gb": r["peak_encode_gb"], "peak_decode_gb": r["peak_decode_gb"],
+          "bd_rate_pct": r["bd_rate"], "bd_psnr_db": r["bd_psnr"], "table": r["table"],
+          "k5_vs_encode_image": k5, "k5_pipelined_decode_bit_identical": True,
+          "k5_pipelined_decode_s": pipe_s,
+          "log": [ln for ln in raw_lines if ln.startswith("[")],
+          "total_seconds": time.time() - t_phase})
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "cli", "dataset"), default=None,
+    ap.add_argument("--only", choices=("kernels", "cli", "dataset", "flagship"), default=None,
                     help="kernels: the kernel phases only; cli: the encode, decode "
                          "and rd phases and the cli phase only; dataset: the dataset "
-                         "and sweep_cli phases only (neither of the last two prints "
-                         "the kernels line)")
+                         "and sweep_cli phases only; flagship: the tiles and flagship "
+                         "phases only (none of the last three prints the kernels line)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one encode, one sweep, two fits, two GF-2 epochs "
                          "and one dataset encode with torch.profiler")
@@ -1918,6 +2204,14 @@ def main():
               "k2_launches_by_path": k2["launches_by_path"],
               "script_seconds": time.time() - t_script})
         return
+    if args.only == "flagship":
+        k1, k2 = {"launches_by_path": {}}, {"launches_by_path": {}}
+        phase_tiles(k1)
+        phase_flagship(k1, k2)
+        emit({"k1_launches_by_path": k1["launches_by_path"],
+              "k2_launches_by_path": k2["launches_by_path"],
+              "script_seconds": time.time() - t_script})
+        return
     k1 = phase_kernels(card)
     k2 = phase_expert_kernels(card)
     k3, k4 = phase_multi_kernels(card)
@@ -1927,11 +2221,14 @@ def main():
         encoded = phase_codec(args.profile, k1)
         sweep_solos = phase_sweep(args.profile, k2)
         phase_multi_k(card, args.profile, k3, k4)
-        phase_staging(args.profile, k1, k2)
+        gf2 = phase_staging(args.profile, k1, k2)
+        phase_tiles(k1, gf2)
+        del gf2
         from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
         phase_cli(k1, encoded, synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42))
         phase_sweep_cli(k1, k2, phase_dataset(args.profile, k1, k2, sweep_solos))
+        phase_flagship(k1, k2)
     emit({"phase": "total", "script_seconds": time.time() - t_script})
     emit({"kernels": [k1, k2, k3, k4, *k5]})
     print(card_line(), flush=True)

@@ -78,6 +78,9 @@ class EncodeStats:
     # train_wait (blocking on the device), weights_codec, base_wait (a rate
     # sweep: finalize, the two of every point)
     phases: Optional[dict] = None
+    # the plan of the expert group the job trained in (`encode_dataset`);
+    # None where it trained alone
+    plan: Optional[GroupPlan] = None
 
     @property
     def bpsp(self) -> float:
@@ -149,13 +152,15 @@ def _warn_gather_fallback(H, W, C):
     )
 
 
-def pick_staging(H, W, C, max_msb, fspec, tspec):
+def pick_staging(H, W, C, max_msb, fspec, tspec, warn=True):
     """The JAX package's rule for how training batches are built
     (train/loop.py::fit): the f32 feature cache when it fits the budget,
     else the full integer tap matrix, else banded row taps, else scalar
     gathers (with a RuntimeWarning).  Returns (staging, dtype): float32
     for "cached", the tap matrix's dtype for "full" and "gather", the raw
-    row taps' for "banded"."""
+    row taps' for "banded".  `warn=False` keeps the gather warning quiet
+    for size estimates (`tiles_overlap`), so that it fires only where a
+    tile's staging is really chosen."""
     g = tspec.sample_granule
     if not fspec.use_colors:
         if fspec.use_coords and _cached_bytes(H, W, C, fspec, g) <= STAGE_BUDGET_BYTES:
@@ -172,8 +177,43 @@ def pick_staging(H, W, C, max_msb, fspec, tspec):
         return "full", tap_dt
     if banded <= STAGE_BUDGET_BYTES:
         return "banded", row_taps_dtype(max_msb)
-    _warn_gather_fallback(H, W, C)
+    if warn:
+        _warn_gather_fallback(H, W, C)
     return "gather", tap_dt
+
+
+# Two tiles' staging and images stay below this for `encode_image` to
+# double-buffer them: the JAX package's bound (its card has 16 GB);
+# re-deriving it for 80 GB goes with STAGE_BUDGET_BYTES.
+OVERLAP_BUDGET_BYTES = 12 << 30
+
+
+def tiles_overlap(shape, max_value: int, itemsize: int, cfg: CodecConfig) -> bool:
+    """Whether `encode_image` prepares tile t+1 while tile t trains, for an
+    image of `shape` (C, H, W), largest sample `max_value` and `itemsize`
+    bytes a sample, split by cfg.split_ratio: the JAX package's rule.  The
+    last tile absorbs the split remainders, so it bounds the estimate of
+    one tile's staging (`_cached_bytes`, the "full" or "banded" bytes of
+    `_staging_bytes`, or 0 for "gather"); two tiles' staging and images
+    must stay below OVERLAP_BUDGET_BYTES."""
+    C, H, W = shape
+    sr = cfg.split_ratio
+    if sr * sr <= 1:
+        return False
+    tH, tW = H // sr + H % sr, W // sr + W % sr
+    max_msb = max_value >> cfg.K
+    staging, _ = pick_staging(tH, tW, C, max_msb, cfg.features, cfg.train, warn=False)
+    g = max(1, cfg.train.sample_granule)
+    if staging == "cached":
+        sbytes = _cached_bytes(tH, tW, C, cfg.features, g)
+    elif staging in ("full", "banded"):
+        # the JAX dtype's itemsize (the port widens absolute taps above 255)
+        isz = _tap_itemsize(max_msb, cfg.features.relative and staging == "full")
+        full, banded = _staging_bytes(tH, tW, C, cfg.features, g, isz, isz)
+        sbytes = full if staging == "full" else banded
+    else:
+        sbytes = 0
+    return 2 * (sbytes + C * tH * tW * itemsize) < OVERLAP_BUDGET_BYTES
 
 
 BUCKET_SMALL_Q, BUCKET_LARGE_Q = 128, 512
@@ -242,13 +282,28 @@ def _msb_plane(tile: np.ndarray, K: int) -> np.ndarray:
     return msb.astype(np.uint8) if int(msb.max()) <= 255 else msb.astype(np.uint16)
 
 
-def _train_tile(tile: np.ndarray, cfg: CodecConfig, generator: torch.Generator,
-                device: torch.device, use_fused: Optional[bool] = None,
-                bucket: bool = False):
-    """Train one tile's network; returns (flat_fn, fit_result).
+@dataclasses.dataclass
+class _TileOnDevice:
+    """One tile uploaded and prepared for `fit`: the padded base plane, its
+    scale and the LSB labels on the device, the shape it trains at (its
+    bucket's with bucketing), the real (H, W) then, and its staging."""
+
+    plane: torch.Tensor
+    plane_scale: torch.Tensor
+    labels: torch.Tensor
+    H: int
+    W: int
+    hw: Optional[tuple]
+    staging: str
+    tap_dtype: torch.dtype
+
+
+def _upload_tile(tile: np.ndarray, cfg: CodecConfig, device: torch.device,
+                 bucket: bool = False) -> _TileOnDevice:
+    """The staging choice, host-to-device copy and prep of one tile.
 
     `bucket=True` pads the tile up to its bucket (`bucket_dims`, pad by
-    `_pad_to_bucket`) and trains at the bucket's shape with the real (H, W)
+    `_pad_to_bucket`) to train at the bucket's shape with the real (H, W)
     masked in (`fit(hw=)`): RD-equivalent to the exact-shape fit, not
     byte-identical.  It applies to colour features without coordinates
     (coordinates are normalized by the shape); other configs train at the
@@ -264,7 +319,7 @@ def _train_tile(tile: np.ndarray, cfg: CodecConfig, generator: torch.Generator,
             "colors/no-coords feature configs (coords features normalize by "
             "the static H/W) — training exact-shape.",
             RuntimeWarning,
-            stacklevel=3,
+            stacklevel=4,
         )
     elif bucket:
         Hb, Wb = bucket_dims(H, W, fspec.D)
@@ -272,19 +327,55 @@ def _train_tile(tile: np.ndarray, cfg: CodecConfig, generator: torch.Generator,
             dev_tile = _pad_to_bucket(tile, fspec.D, Hb, Wb)
             hw = (H, W)
             H, W = Hb, Wb
-    max_msb = int(tile.max()) >> cfg.K
-    staging, tap_dtype = pick_staging(H, W, C, max_msb, fspec, cfg.train)
-    dev = put_image(dev_tile, device)
-    plane, plane_scale, labels = _prepare_tile(dev, cfg.K, fspec.D)
-    label_scale = float(np.float32(lsb_scale(cfg.K)))
+    staging, tap_dtype = pick_staging(H, W, C, int(tile.max()) >> cfg.K, fspec, cfg.train)
+    plane, plane_scale, labels = _prepare_tile(put_image(dev_tile, device), cfg.K, fspec.D)
+    return _TileOnDevice(plane, plane_scale, labels, H, W, hw, staging, tap_dtype)
+
+
+def _upload_tile_aside(tile: np.ndarray, cfg: CodecConfig, device: torch.device,
+                       bucket: bool):
+    """`_upload_tile` on a stream of its own (run in a worker thread while
+    the caller's stream trains another tile): (tile, event that ends its
+    work), the event None off CUDA.  `_adopt_tile` hands it over."""
+    if device.type != "cuda":
+        return _upload_tile(tile, cfg, device, bucket), None
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        up = _upload_tile(tile, cfg, device, bucket)
+        done = torch.cuda.Event()
+        done.record(side)
+    return up, done
+
+
+def _adopt_tile(up: _TileOnDevice, done, device: torch.device) -> _TileOnDevice:
+    """Make the caller's stream wait for a tile uploaded aside, and tell
+    the caching allocator that its tensors are used on that stream."""
+    if done is not None:
+        main = torch.cuda.current_stream(device)
+        main.wait_event(done)
+        for t in (up.plane, up.plane_scale, up.labels):
+            t.record_stream(main)
+    return up
+
+
+def _train_tile(tile: np.ndarray, cfg: CodecConfig, generator: torch.Generator,
+                device: torch.device, use_fused: Optional[bool] = None,
+                bucket: bool = False, up: Optional[_TileOnDevice] = None):
+    """Train one tile's network; returns (flat_fn, fit_result).  `up`: the
+    tile already on the device (`_upload_tile`), else it is uploaded here;
+    `bucket` as `_upload_tile` takes it."""
+    C = tile.shape[0]
+    if up is None:
+        up = _upload_tile(tile, cfg, device, bucket)
     result = fit(
-        plane, plane_scale, labels, label_scale, generator,
-        fspec, cfg.model, cfg.train, H, W, C,
-        staging=staging, tap_dtype=tap_dtype, use_fused=use_fused, hw=hw, device=device,
+        up.plane, up.plane_scale, up.labels, float(np.float32(lsb_scale(cfg.K))), generator,
+        cfg.features, cfg.model, cfg.train, up.H, up.W, C,
+        staging=up.staging, tap_dtype=up.tap_dtype, use_fused=use_fused, hw=up.hw,
+        device=device,
     )
 
     def flat_fn():
-        return flatten_params(result.params, fspec.feature_dim(C))
+        return flatten_params(result.params, cfg.features.feature_dim(C))
 
     return flat_fn, result
 
@@ -305,12 +396,18 @@ def encode_image(
     draws from `tile_generator(seed, tile_index)`.  `use_fused` (default:
     on CUDA) trains with the fused-step kernel, else with the exact
     autograd step.  The host base-layer codec of a tile runs in a worker
-    thread while the device trains; tiles run one after another.
+    thread while the device trains.  With split_ratio > 1 the tiles are
+    double-buffered where `tiles_overlap` allows it, as in the JAX
+    package: while tile t trains, a worker thread uploads and prepares
+    tile t+1 on a CUDA stream of its own, and its base codec starts; tile
+    t+1 trains once tile t's fit has returned, and the streams are
+    byte-identical to the serial order (the same draws, the same
+    programs).
 
     `header_version`: 1 (default) or 0, the reference's header layout (the
     body after it is the same).  `collect_curves`: each tile's per-step
     losses land in `TileStats.step_losses`.  `bucket`: train each tile at
-    its bucket's shape (`_train_tile`); RD-equivalent, not byte-identical,
+    its bucket's shape (`_upload_tile`); RD-equivalent, not byte-identical,
     to the exact-shape encode.
     """
     device = resolve_device(device)
@@ -323,16 +420,31 @@ def encode_image(
     t0 = time.time()
     timer = PhaseTimer()
     nn_streams, base_streams, tiles_stats = [], [], []
-    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-        for tile_idx, tile in enumerate(split_image(img, cfg.split_ratio)):
+    tiles = list(split_image(img, cfg.split_ratio))
+    overlap = tiles_overlap(img.shape, int(img.max()), img.dtype.itemsize, cfg)
+
+    def base_of(tile):
+        return pool.submit(lambda: encode_base(_msb_plane(tile, cfg.K), cfg.base_codec))
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=1) as upload_pool:
+        ahead = None  # (base future, upload future) of the next tile
+        for tile_idx, tile in enumerate(tiles):
             t1 = time.time()
             with timer.phase("dispatch"):
-                base_future = pool.submit(
-                    lambda t=tile: encode_base(_msb_plane(t, cfg.K), cfg.base_codec)
-                )
-                flat_fn, result = _train_tile(
-                    tile, cfg, tile_generator(seed, tile_idx), device, use_fused, bucket
-                )
+                if ahead is None:
+                    base_future = base_of(tile)
+                    up = _upload_tile(tile, cfg, device, bucket)
+                else:
+                    base_future, up_future = ahead
+                    up = _adopt_tile(*up_future.result(), device)
+                ahead = None
+                if overlap and tile_idx + 1 < len(tiles):
+                    nxt = tiles[tile_idx + 1]
+                    ahead = (base_of(nxt),
+                             upload_pool.submit(_upload_tile_aside, nxt, cfg, device, bucket))
+                flat_fn, result = _train_tile(tile, cfg, tile_generator(seed, tile_idx), device,
+                                              use_fused, up=up)
             with timer.phase("train_wait"):
                 flat = flat_fn()  # blocks on the device result
             t2 = time.time()
@@ -348,6 +460,11 @@ def encode_image(
                 base_bytes=len(base),
                 best_mse=result.best_mse,
                 best_epoch=result.best_epoch,
+                # an exclusive window, as the JAX package's: t1 is read
+                # after the previous tile's finalize (its `fit` returns
+                # when training ends, where JAX's dispatch returns at
+                # once and needs a clamp), so the windows are disjoint
+                # and sum to no more than the wall clock
                 train_time=t2 - t1,
                 base_time=t3 - t2,
                 staging=result.staging,
@@ -599,7 +716,9 @@ def encode_dataset(
     shape or config) too, and each of those streams is byte-identical to
     `encode_image`'s.  Results come back in job order.  Each expert is
     bit-identical to `fit` on its image and K, so every stream is
-    `encode_image`'s at the same seed, chunked or not.
+    `encode_image`'s at the same seed, chunked or not.  An expert-batched
+    job's `EncodeStats.plan` is the `GroupPlan` its group ran (staging,
+    chunks, budget); None on the other paths.
 
     Seeds: with ``seed=None`` every job trains from
     ``tile_generator(cfg.train.seed, 0)``, as `encode_image(img, cfg)`
@@ -793,6 +912,7 @@ def _encode_job_group(
             i, cfg = ijobs[j]
             results[j] = _coded_job(cfg, (C,) + dims[i], flats[e], base_futs[e], result, e,
                                     t_train / len(chunk), t0, header_version)
+            results[j][1].plan = plan
 
     # the expert loop evaluates expert by expert, one row block at a time,
     # so the JAX package's EVAL_UNROLL_PX switch has no counterpart here

@@ -303,6 +303,8 @@ def test_dataset_chunking_matches_jax_plan(monkeypatch):
     plan = codec._plan_group(imgs, [(i, c) for i in range(2) for c in (_cfg(3), _cfg(4))],
                              False, 16)
     assert plan.budget == 3 * one_expert_full // 2 and plan.staging == "full"
+    # every job's stats carry the plan its group ran
+    assert all(st.plan == plan for _, st in chunked) and len(plan.chunks) == len(got)
     assert [s for s, _ in chunked] == [s for s, _ in whole]
 
 

@@ -26,6 +26,11 @@ PORT_MODULES = [
     "lbdrn_msic_tpu_torch.utils.profiling",
     "lbdrn_msic_tpu_torch.utils.transfer",
     "lbdrn_msic_tpu_torch.eval.metrics",
+    "lbdrn_msic_tpu_torch.eval.reports",
+    "lbdrn_msic_tpu_torch.eval.anchors",
+    "lbdrn_msic_tpu_torch.eval.bdr_anchors",
+    "lbdrn_msic_tpu_torch.eval.dlpr_anchor",
+    "lbdrn_msic_tpu_torch.utils.visualize",
     "lbdrn_msic_tpu_torch.models.siren",
     "lbdrn_msic_tpu_torch.ops._build",
     "lbdrn_msic_tpu_torch.ops.fused_step",
@@ -48,6 +53,12 @@ PORT_MODULES = [
     "lbdrn_msic_tpu_torch.cli.decode",
     "lbdrn_msic_tpu_torch.cli.summarize",
     "lbdrn_msic_tpu_torch.cli.sweep",
+    "lbdrn_msic_tpu_torch.cli.anchors",
+    "lbdrn_msic_tpu_torch.cli.report",
+    "lbdrn_msic_tpu_torch.cli.visualize",
+    "lbdrn_msic_tpu_torch.scripts",
+    "lbdrn_msic_tpu_torch.scripts.flagship_workload",
+    "lbdrn_msic_tpu_torch.scripts.scale_check",
     "lbdrn_msic_tpu_torch.parallel",
     "lbdrn_msic_tpu_torch.parallel.distributed",
     "chip_smoke",
