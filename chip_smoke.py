@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only cli   # encode/decode/rd and cli phases only
     python3 chip_smoke.py --only dataset   # the dataset and sweep_cli phases only
     python3 chip_smoke.py --only flagship  # the tiles and flagship phases only
+    python3 chip_smoke.py --only validation  # the multi_k and validation phases only
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
                                        # one encode, one sweep, the fit at
                                        # multi_k 0 and 16, one epoch of the
@@ -19,7 +20,11 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            batches, at a wider layer set (bc=128, nl=3, C=8) and at the
            coordinate features' input width (150 -> F_pad 256; timed beside
            its bound as `coords_f256`); a 5-step
-           chain against the exact autograd oracle; the kernel's CUDA-event
+           chain against the exact autograd oracle; at the ablation matrix's
+           shapes (ABLATION_WIDTHS: bc=128 nl=1, bc=128 nl=2, bc=256 nl=2,
+           F = 196 / 36 / 4 / 2, B = 2048 / 4096) one step against the plain
+           step, a 5-step chain against the oracle, rows a CTA, weights
+           staged or not, time, bound and plain time; the kernel's CUDA-event
            time beside its bound and the plain time; each pass's device
            time by kernel name (a torch.profiler window over 50 steps; pass
            2 is a programmatic dependent launch whose span opens during pass
@@ -32,7 +37,10 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            coordinate width (150 -> F_pad 256) with per-expert masks; time,
            pass split and design as for K1, bound, plain time; time and
            bound also at E = 8 (`e8`, the dataset cell's) and at F_pad 256
-           (`coords_f256`)
+           (`coords_f256`); at the ablation sweeps' E = 6 (K 1..6) for the
+           bench widths and each expert-compatible ABLATION_WIDTHS shape:
+           against the plain step, bit for bit K1 per expert, time, bound
+           and plain time
   encode   2048x2048x4 12-bit synthetic scene, seed 42, K=5, g=8, e=10,
            base codec lpc: one warm and three timed encodes, each of which
            must launch K1 exactly epochs x steps = 5120 times (and K2 never)
@@ -56,9 +64,9 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            the plain k steps, every launch bit for bit k chained K1 / K2
            launches, K4's expert e bit for bit K3; time per launch and per
            step, k chained single-step launches, bound, plain time
-  multi_k  `fit` (K=5) at multi_k in {0, 4, 16, 64} and `fit_rate_experts`
-           (K in {3, 4, 5, 6}) at {0, 8, 32} on the same scene, the
-           counterpart of scripts/profiling/multik_ab.py: one warm and two
+  multi_k  `profiling.multik_ab` (`fit`, K=5, one eval, at multi_k in {0,
+           4, 16, 64}) and `fit_rate_experts` (K in {3, 4, 5, 6}) at {0, 8,
+           32} on the same scene: one warm and two
            timed rounds, interleaved; exactly epochs x ceil(steps / k)
            K3 / K4 launches (0 single-step ones), or epochs x steps K1 / K2
            at multi_k=0; every chunked fit bit-identical to multi_k=0
@@ -72,11 +80,11 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
   staging  training above the feature-cache budget, one run each: (a) `fit`
            at the bench scene (e=2) in "full" and "banded" staging, bit for
            bit "cached" at g=8, and "gather" bit for bit "cached" at g=1;
-           (b) a GF-2-sized scene (7605x7815x4, 12-bit, seed 42, e=10):
+           (b) a GF-2-sized scene (7605x7815x4, 12-bit, seed 42, e=4):
            `encode_image` at K=5 must pick "full" and at K=3 "banded", each
-           launching K1 exactly 10 x 7256 = 72560 times (K2 never), decoded
+           launching K1 exactly 4 x 7256 = 29024 times (K2 never), decoded
            with MSBs exact; (c) its rate sweep, K in {3, 4, 5, 6}: "banded",
-           one group, exactly 72560 K2 launches (K1 never), every point
+           one group, exactly 29024 K2 launches (K1 never), every point
            decoded with MSBs exact, K=3 byte-identical to (b)'s K=3 stream,
            K=5 within 0.1 dB of (b)'s "full" K=5.  Seconds, staged bytes
            against `_staging_bytes`' estimate, peak device memory, sha256;
@@ -135,9 +143,10 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            trains) and forced shut, in the order open, shut, shut, open: 5120
            K1 launches each, the streams byte-identical, the decode
            MSB-exact, both orders' seconds; (b) the staging phase's GF-2
-           scene, four "full" tiles, gate open: epochs x steps summed over
-           the tiles (72560) K1 launches, MSB-exact, seconds and peak device
-           memory beside split_ratio 1's "full" K=5 encode
+           scene at e=4, four "full" tiles, the gate open and shut in the
+           same order: epochs x steps summed over the tiles (29028) K1
+           launches, MSB-exact, seconds and peak device memory beside
+           split_ratio 1's "full" K=5 encode
   flagship `scripts.flagship_workload.run` on GF2_D (7605x7815x4), WFI_A
            (6000^2x8) and PMS_A (6000^2x4) at K 3..6, e=2: bucketed
            `encode_dataset` a scene, `decode_pipelined_iter`, summarize, the
@@ -148,6 +157,20 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            pipelined decode bit for bit `decode_stream`, BD-PSNR > 0 and
            BD-Rate < 0 against Baseline in every group; staging, chunks,
            seconds a job per group, peak device memory
+  validation  the reference's validation studies through the port's
+           scripts, each run with the counts zeroed before it:
+           rd_validation at its defaults (512^2, 3 scenes, K 1..6, e=10:
+           exactly 18 x 10 x 32 K1 launches, every stream MSB-exact, the
+           JPEG 2000 anchors, BD-Rate < 0 and BD-PSNR > 0 against
+           Baseline); substitute_anchors at its defaults; recipe_study's
+           four recipes (18 x epochs x 32 K1 launches each, BD against
+           ref_e10, seconds a job); the ablation matrix at its defaults
+           (256^2, 2 scenes, four groups, 23 variants: each variant's K1 /
+           K2 launches exactly epochs x steps per fit, MSB-exact, BD
+           against its group's anchor) and its network group at the bench
+           scene (2048^2, K2 at E = 6 through bc=256, 5120 launches a
+           variant); the multi_k phase's multik_ab rows.  Whether OpenCV
+           is present, and what its absence left out
 Then the whole script's seconds, the kernels line (K1-K4, K5 per variant;
 K1's and K2's launches_by_path per path), the card line, and the final
 status line.  Exits non-zero without
@@ -310,6 +333,27 @@ def kernel_entry(name: str, replaces: str, card: str, ops, nbytes: float,
     }
 
 
+# the ablation matrix's shapes (scripts/ablations.py's variants) that no
+# other case runs: (case, B, (bc, nl), input width F), C = 4.  nl=1 has no
+# hidden-to-hidden layer; bc=128, nl=2 and bc=256 read their weights from
+# global memory (cta_layout); D=3's 196 pads to 256; D=1, absolute colours
+# at D=0 and coordinates alone (K1 only: not expert-compatible) pad to 128
+ABLATION_WIDTHS = (
+    ("bc128_nl1", 8192, (128, 1), 100),
+    ("bc128_nl2", 8192, (128, 2), 100),
+    ("bc256_nl2", 8192, (256, 2), 100),
+    ("d3_f196", 8192, (64, 2), 196),
+    ("d1_f36", 8192, (64, 2), 36),
+    ("abs_d0_f4", 8192, (64, 2), 4),
+    ("coords_f2", 8192, (64, 2), 2),
+    ("bs2048", 2048, (64, 2), 100),
+    ("bs4096", 4096, (64, 2), 100),
+)
+# K2 at the sweep's E = 6 (K 1..6): the bench widths and every shape above
+# that a rate sweep trains as experts
+ABLATION_WIDTHS_E6 = (("bc64_nl2", 8192, (64, 2), 100),) + tuple(
+    w for w in ABLATION_WIDTHS if w[0] != "coords_f2")
+
 # the 8-band WFI scenes' feature width (25 a band at the default
 # features): F_pad 256 beside C = 8, the flagship's K2 shape
 WFI_D_IN = 200
@@ -325,7 +369,6 @@ def phase_kernels(card: str):
 
     mspec = ModelSpec()
     C, dim_in, B = 4, 100, 8192
-    F = pad_dim(dim_in)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     assert FeatureSpec().feature_dim(8) == WFI_D_IN
@@ -343,25 +386,11 @@ def phase_kernels(card: str):
         return init_params(torch.Generator().manual_seed(0), d_in, c, spec,
                            pad_input_to=pad_dim(d_in), device=dev)
 
-    params0 = init(mspec, C)
-    zeros = params0.map(torch.zeros_like)
     clone = lambda p: p.map(torch.clone)
 
-    # the bench widths, full and ragged/masked; one wider layer set (bc=128,
-    # nl=3, C=8), whose weights do not fit in shared memory beside a CTA's
-    # rows, so the kernel reads them from global memory; the coordinate
-    # features' input width (150 -> F_pad 256, 32 rows a CTA) of the cli
-    # phase; and the 8-band WFI scenes' shape at the bench widths (F = 200
-    # -> F_pad 256, C = 8) of the flagship's encode_image checks, whole
-    # and under a bucket's pad mask
-    cases, max_err = [], 0.0
-    for name, b, masked, spec, c, d_in in (
-            ("full", B, False, mspec, C, dim_in),
-            ("ragged_masked", B - 37, True, mspec, C, dim_in),
-            ("wide_ragged_masked", 1000, True, ModelSpec(128, 3), 8, dim_in),
-            ("coords_embedding_masked", B, True, mspec, C, 150),
-            ("wfi_c8_f256", B, False, mspec, 8, WFI_D_IN),
-            ("wfi_c8_f256_masked", B, True, mspec, 8, WFI_D_IN)):
+    def check(name, b, masked, spec, c, d_in):
+        """One K1 step against the plain one from the same state: (the
+        case's row, the initial params and the batch)."""
         x, y, mask = inputs(b, masked, c, d_in)
         p0 = init(spec, c, d_in)
         z0 = p0.map(torch.zeros_like)
@@ -371,60 +400,83 @@ def phase_kernels(card: str):
         _, _, _, pl = fs.fused_train_step_plain(pp, pm, pv, x, y, mask, 1e-3, 1, spec, c)
         torch.cuda.synchronize()
         err, n_ill = check_step((kp, km, kv), kl, (pp, pm, pv), pl)
-        max_err = max(max_err, err)
         rows, staged = fs.cta_layout([pad_dim(d_in)] + [w.shape[1] for w in p0.weights],
                                      fs._smem_optin)
-        cases.append({"case": name, "B": b, "F_pad": pad_dim(d_in),
-                      "widths": [spec.base_channel, spec.num_layers, c],
-                      "rows_per_cta": rows, "weights_in_smem": staged,
-                      "loss": float(kl), "loss_plain": float(pl),
-                      "max_abs_err_params": err, "params_with_grad_below_1e-6": n_ill})
+        return ({"case": name, "B": b, "F_pad": pad_dim(d_in),
+                 "widths": [spec.base_channel, spec.num_layers, c],
+                 "rows_per_cta": rows, "weights_in_smem": staged,
+                 "loss": float(kl), "loss_plain": float(pl),
+                 "max_abs_err_params": err, "params_with_grad_below_1e-6": n_ill},
+                p0, (x, y, mask))
 
-    # 5-step chain vs the exact autograd oracle (bench.py's bounds)
-    x, y, mask = inputs(B, False)
-    n_steps, lr = 5, 1e-3
-    kp, km, kv = clone(params0), clone(zeros), clone(zeros)
-    rp, rm, rv = clone(params0), clone(zeros), clone(zeros)
-    losses = []
-    for t in range(1, n_steps + 1):
-        _, _, _, kl = fs.fused_train_step(kp, km, kv, x, y, mask, lr, t, mspec, C)
-        _, _, _, rl = fs.reference_train_step(rp, rm, rv, x, y, mask, lr, t, mspec, C)
-        torch.testing.assert_close(kl, rl, rtol=1e-4, atol=1e-6)
-        losses.append([float(kl), float(rl)])
-    drift = max(float((a - r).abs().max()) for a, r in zip(kp.leaves(), rp.leaves()))
-    assert drift < 3 * n_steps * lr, drift
+    # the bench widths, full and ragged/masked; one wider layer set (bc=128,
+    # nl=3, C=8), whose weights do not fit in shared memory beside a CTA's
+    # rows, so the kernel reads them from global memory; the coordinate
+    # features' input width (150 -> F_pad 256, 32 rows a CTA) of the cli
+    # phase; and the 8-band WFI scenes' shape at the bench widths (F = 200
+    # -> F_pad 256, C = 8) of the flagship's encode_image checks, whole
+    # and under a bucket's pad mask
+    full, params0, batch = check("full", B, False, mspec, C, dim_in)
+    cases = [full] + [check(*case)[0] for case in (
+        ("ragged_masked", B - 37, True, mspec, C, dim_in),
+        ("wide_ragged_masked", 1000, True, ModelSpec(128, 3), 8, dim_in),
+        ("coords_embedding_masked", B, True, mspec, C, 150),
+        ("wfi_c8_f256", B, False, mspec, 8, WFI_D_IN),
+        ("wfi_c8_f256_masked", B, True, mspec, 8, WFI_D_IN))]
 
-    # timing at the bench shape (state keeps training; lr is irrelevant)
-    tp, tm, tv = clone(params0), clone(zeros), clone(zeros)
-    ms = cuda_ms(lambda: fs.fused_train_step(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C), 300)
-    passes = pass_times(lambda: fs.fused_train_step(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C))
-    plain_ms = cuda_ms(
-        lambda: fs.fused_train_step_plain(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, C), 30)
-    dims = [F] + [w.shape[1] for w in params0.weights]
-    P = sum(w.numel() + b.numel() for w, b in zip(params0.weights, params0.biases))
-    ops, nbytes = step_cost(B, dims, P)
-    kernel = kernel_entry("fused_train_step", "lbdrn_msic_tpu/ops/fused_step.py:245", card,
-                          ops, nbytes, ms, plain_ms, max_err)
-    # time and bound at the coordinate features' width (the cli phase's (c))
-    xc, yc, mc = inputs(B, False, C, 150)
-    pc = init(mspec, C, 150)
-    zc = pc.map(torch.zeros_like)
-    cp, cm, cv = clone(pc), clone(zc), clone(zc)
-    P_c = sum(w.numel() + b.numel() for w, b in zip(pc.weights, pc.biases))
-    ops_c, bytes_c = step_cost(B, [pad_dim(150)] + [w.shape[1] for w in pc.weights], P_c)
-    coords = kernel_entry("", "", card, ops_c, bytes_c, cuda_ms(
-        lambda: fs.fused_train_step(cp, cm, cv, xc, yc, mc, 1e-3, 1, mspec, C), 300), cuda_ms(
-        lambda: fs.fused_train_step_plain(cp, cm, cv, xc, yc, mc, 1e-3, 1, mspec, C), 30), 0.0)
-    # and at the WFI scenes' (C = 8, F_pad 256, a bucket's pad mask)
-    xw, yw, mw = inputs(B, True, 8, WFI_D_IN)
-    pw = init(mspec, 8, WFI_D_IN)
-    zw = pw.map(torch.zeros_like)
-    wp, wm, wv = clone(pw), clone(zw), clone(zw)
-    P_w = sum(w.numel() + b.numel() for w, b in zip(pw.weights, pw.biases))
-    ops_w, bytes_w = step_cost(B, [pad_dim(WFI_D_IN)] + [w.shape[1] for w in pw.weights], P_w)
-    wfi = kernel_entry("", "", card, ops_w, bytes_w, cuda_ms(
-        lambda: fs.fused_train_step(wp, wm, wv, xw, yw, mw, 1e-3, 1, mspec, 8), 300), cuda_ms(
-        lambda: fs.fused_train_step_plain(wp, wm, wv, xw, yw, mw, 1e-3, 1, mspec, 8), 30), 0.0)
+    def chain(spec, c, p0, x, y, mask, n_steps=5, lr=1e-3):
+        """n K1 steps against the exact autograd oracle (bench.py's bounds):
+        (losses, largest param drift)."""
+        z0 = p0.map(torch.zeros_like)
+        kp, km, kv = clone(p0), clone(z0), clone(z0)
+        rp, rm, rv = clone(p0), clone(z0), clone(z0)
+        losses = []
+        for t in range(1, n_steps + 1):
+            _, _, _, kl = fs.fused_train_step(kp, km, kv, x, y, mask, lr, t, spec, c)
+            _, _, _, rl = fs.reference_train_step(rp, rm, rv, x, y, mask, lr, t, spec, c)
+            torch.testing.assert_close(kl, rl, rtol=1e-4, atol=1e-6)
+            losses.append([float(kl), float(rl)])
+        drift = max(float((a - r).abs().max()) for a, r in zip(kp.leaves(), rp.leaves()))
+        assert drift < 3 * n_steps * lr, drift
+        return losses, drift
+
+    def timed(spec, c, d_in, b=B, masked=False, n=300):
+        """K1's and the plain step's ms a step at these widths, and the bound
+        (a kernel_entry); the state keeps training (lr is irrelevant)."""
+        x, y, m = inputs(b, masked, c, d_in)
+        p0 = init(spec, c, d_in)
+        z0 = p0.map(torch.zeros_like)
+        tp, tm, tv = clone(p0), clone(z0), clone(z0)
+        step = lambda f: f(tp, tm, tv, x, y, m, 1e-3, 1, spec, c)
+        P = sum(w.numel() + bb.numel() for w, bb in zip(p0.weights, p0.biases))
+        ops, nbytes = step_cost(b, [pad_dim(d_in)] + [w.shape[1] for w in p0.weights], P)
+        entry = kernel_entry("", "", card, ops, nbytes,
+                             cuda_ms(lambda: step(fs.fused_train_step), n),
+                             cuda_ms(lambda: step(fs.fused_train_step_plain), 30), 0.0)
+        return entry, (lambda: step(fs.fused_train_step)), ops, nbytes
+
+    losses, drift = chain(mspec, C, params0, *batch)
+
+    # the ablation matrix's widths (ABLATION_WIDTHS): one step against the
+    # plain step, a 5-step chain against the oracle, time, bound, plain time
+    widths = []
+    for name, b, (bc, nl), d_in in ABLATION_WIDTHS:
+        spec = ModelSpec(bc, nl)
+        row, p0, batch = check(name, b, False, spec, C, d_in)
+        entry = timed(spec, C, d_in, b, n=100)[0]
+        widths.append({**row, "F": d_in, "chain_param_drift": chain(spec, C, p0, *batch)[1],
+                       **{key: entry[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}})
+
+    # timing at the bench shape, at the coordinate features' width (the cli
+    # phase's (c)) and at the WFI scenes' (C = 8, F_pad 256, a bucket's pad
+    # mask)
+    kernel, run, ops, nbytes = timed(mspec, C, dim_in)
+    passes = pass_times(run)
+    kernel.update(name="fused_train_step", replaces="lbdrn_msic_tpu/ops/fused_step.py:245",
+                  max_abs_err=max(r["max_abs_err_params"] for r in cases + widths))
+    coords = timed(mspec, C, 150)[0]
+    wfi = timed(mspec, 8, WFI_D_IN, masked=True)[0]
+    ms, plain_ms = kernel["ms"], kernel["plain_ms"]
     emit({"phase": "kernels", "cases": cases, "chain_losses": losses,
           "chain_param_drift": drift, "ops": ops, "bytes": nbytes,
           "ms": ms, "passes": passes, "pass_2_after_pass_1_ms": ms - pass1_ms(passes),
@@ -432,7 +484,7 @@ def phase_kernels(card: str):
           "bound_ms": kernel["bound_ms"],
           "coords_f256": {k: coords[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
           "wfi_c8_f256": {k: wfi[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-          "card": card})
+          "ablation_widths": widths, "card": card})
     return kernel
 
 
@@ -447,7 +499,6 @@ def phase_expert_kernels(card: str):
 
     mspec = ModelSpec()
     E, C, dim_in, B = 4, 4, 100, 8192  # the sweep's K in {3, 4, 5, 6}
-    F = pad_dim(dim_in)
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     clone = lambda p: p.map(torch.clone)
@@ -469,23 +520,9 @@ def phase_expert_kernels(card: str):
                                          pad_input_to=pad_dim(d_in))
                              for e in range(n_exp)]).to(dev)
 
-    # the sweep's shape, full; ragged with per-expert masks (the bucketed
-    # dataset's (E, B) masks); the wide layer set; the coordinate
-    # features' width (150 -> F_pad 256) with per-expert masks, the
-    # coordinate sweep's (the dataset phase's (d)); and the WFI scenes'
-    # shape at the bench widths (F = 200 -> F_pad 256, C = 8) with bucket
-    # pad masks: E = 1 with a (1, B) mask, as the flagship's one-expert
-    # chunks run it, and E = 4
-    cases, max_err = [], 0.0
-    for name, b, dens, spec, c, d_in in (
-            ("full", B, None, mspec, C, dim_in),
-            ("ragged_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C, dim_in),
-            ("wide_ragged_per_expert_masks", 1000, (1.0, 0.8, 0.5, 0.0), ModelSpec(128, 3), 8,
-             dim_in),
-            ("coords_f256_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C, 150),
-            ("wfi_c8_f256_e1_mask", B, (0.95,), mspec, 8, WFI_D_IN),
-            ("wfi_c8_f256_per_expert_masks", B, (0.95, 0.8, 0.5, 0.2), mspec, 8, WFI_D_IN)):
-        n_exp = E if dens is None else len(dens)
+    def check(name, b, dens, spec, c, d_in, n_exp):
+        """One K2 step against the plain one from the same state, and
+        expert e bit for bit K1 on expert e's slices: the case's row."""
         x, y, mask = inputs(b, dens, c, d_in, n_exp)
         p0 = init(spec, c, d_in, n_exp)
         z0 = p0.map(torch.zeros_like)
@@ -495,8 +532,6 @@ def phase_expert_kernels(card: str):
         *_, pl = fs.fused_expert_step_plain(*p, x, y, mask, 1e-3, 1, spec, c)
         torch.cuda.synchronize()
         err, n_ill = check_step(k, kl, p, pl)
-        max_err = max(max_err, err)
-        # expert e of K2 is K1 on expert e's slices, bit for bit
         for e in range(n_exp):
             one = tuple(unstack_params(st, e).map(torch.clone) for st in (p0, z0, z0))
             *_, l1 = fs.fused_train_step(*one, x[e], y[e], mask[e] if mask.dim() == 2 else mask,
@@ -508,32 +543,59 @@ def phase_expert_kernels(card: str):
                     assert torch.equal(a, r), (name, e)
         rows, staged = fs.cta_layout([pad_dim(d_in)] + [w.shape[-1] for w in p0.weights],
                                      fs._smem_optin)
-        cases.append({"case": name, "E": n_exp, "B": b, "F_pad": pad_dim(d_in),
-                      "widths": [spec.base_channel, spec.num_layers, c],
-                      "mask_densities": dens, "rows_per_cta": rows, "weights_in_smem": staged,
-                      "loss": kl.tolist(), "loss_plain": pl.tolist(),
-                      "max_abs_err_params": err, "params_with_grad_below_1e-6": n_ill,
-                      "bit_identical_to_k1_per_expert": True})
+        return {"case": name, "E": n_exp, "B": b, "F_pad": pad_dim(d_in),
+                "widths": [spec.base_channel, spec.num_layers, c],
+                "mask_densities": dens, "rows_per_cta": rows, "weights_in_smem": staged,
+                "loss": kl.tolist(), "loss_plain": pl.tolist(),
+                "max_abs_err_params": err, "params_with_grad_below_1e-6": n_ill,
+                "bit_identical_to_k1_per_expert": True}
 
-    def timed(n_exp, d_in, densities, c=C):
+    # the sweep's shape, full; ragged with per-expert masks (the bucketed
+    # dataset's (E, B) masks); the wide layer set; the coordinate
+    # features' width (150 -> F_pad 256) with per-expert masks, the
+    # coordinate sweep's (the dataset phase's (d)); and the WFI scenes'
+    # shape at the bench widths (F = 200 -> F_pad 256, C = 8) with bucket
+    # pad masks: E = 1 with a (1, B) mask, as the flagship's one-expert
+    # chunks run it, and E = 4
+    cases = [check(name, b, dens, spec, c, d_in, E if dens is None else len(dens))
+             for name, b, dens, spec, c, d_in in (
+                 ("full", B, None, mspec, C, dim_in),
+                 ("ragged_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C, dim_in),
+                 ("wide_ragged_per_expert_masks", 1000, (1.0, 0.8, 0.5, 0.0), ModelSpec(128, 3),
+                  8, dim_in),
+                 ("coords_f256_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C, 150),
+                 ("wfi_c8_f256_e1_mask", B, (0.95,), mspec, 8, WFI_D_IN),
+                 ("wfi_c8_f256_per_expert_masks", B, (0.95, 0.8, 0.5, 0.2), mspec, 8,
+                  WFI_D_IN))]
+
+    def timed(n_exp, d_in, densities, c=C, spec=mspec, b=B, n=300):
         """K2's and its plain version's ms a step, and the bound, at
-        (n_exp, B, pad_dim(d_in)) and c channels; the state keeps
+        (n_exp, b, pad_dim(d_in)) and c channels; the state keeps
         training (lr is irrelevant)."""
-        x, y, mask = inputs(B, densities, c, d_in, n_exp)
-        tp = init(mspec, c, d_in, n_exp)
+        x, y, mask = inputs(b, densities, c, d_in, n_exp)
+        tp = init(spec, c, d_in, n_exp)
         tm, tv = tp.map(torch.zeros_like), tp.map(torch.zeros_like)
-        step = lambda f: f(tp, tm, tv, x, y, mask, 1e-3, 1, mspec, c)
-        ms = cuda_ms(lambda: step(fs.fused_expert_step), 300)
+        step = lambda f: f(tp, tm, tv, x, y, mask, 1e-3, 1, spec, c)
+        ms = cuda_ms(lambda: step(fs.fused_expert_step), n)
         plain = cuda_ms(lambda: step(fs.fused_expert_step_plain), 30)
-        P = sum(w[0].numel() + b[0].numel() for w, b in zip(tp.weights, tp.biases))
-        ops, nbytes = step_cost(B, [pad_dim(d_in)] + [w.shape[-1] for w in tp.weights], P)
+        P = sum(w[0].numel() + bb[0].numel() for w, bb in zip(tp.weights, tp.biases))
+        ops, nbytes = step_cost(b, [pad_dim(d_in)] + [w.shape[-1] for w in tp.weights], P)
         entry = kernel_entry("", "", card, n_exp * ops, n_exp * nbytes, ms, plain, 0.0)
         return entry, (lambda: step(fs.fused_expert_step)), n_exp * ops, n_exp * nbytes
+
+    # the ablation matrix's rate sweeps: E = 6 (K 1..6), one shared mask
+    widths = []
+    for name, b, (bc, nl), d_in in ABLATION_WIDTHS_E6:
+        spec = ModelSpec(bc, nl)
+        row = check(name, b, None, spec, C, d_in, 6)
+        entry = timed(6, d_in, None, C, spec, b, n=100)[0]
+        widths.append({**row, **{key: entry[key]
+                                 for key in ("ms", "plain_ms", "bound_ms", "bound_by")}})
 
     kernel, run, ops, nbytes = timed(E, dim_in, None)  # the sweep's shape
     passes = pass_times(run)
     kernel.update(name="fused_expert_step", replaces="lbdrn_msic_tpu/ops/fused_step.py:765",
-                  max_abs_err=max_err)
+                  max_abs_err=max(r["max_abs_err_params"] for r in cases + widths))
     # the dataset cell's E = 8, and the coordinate sweep's F_pad 256 with
     # per-expert masks
     e8 = timed(8, dim_in, None)[0]
@@ -547,7 +609,7 @@ def phase_expert_kernels(card: str):
           "pass_2_after_pass_1_ms": kernel["ms"] - pass1_ms(passes), "design": FUSED_STEP_DESIGN,
           "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
           "e8": pick(e8), "coords_f256": pick(f256), "wfi_c8_f256_e1": pick(wfi1),
-          "wfi_c8_f256_e4": pick(wfi4), "card": card})
+          "wfi_c8_f256_e4": pick(wfi4), "ablation_widths_e6": widths, "card": card})
     return kernel
 
 
@@ -691,17 +753,19 @@ def phase_multi_kernels(card: str):
 
 
 def phase_multi_k(card: str, profile: bool, k3, k4):
-    """`fit` and `fit_rate_experts` at the bench shape with multi_k, the
-    counterpart of scripts/profiling/multik_ab.py: interleaved runs, exact
-    launch counts, every chunked fit bit-identical to its multi_k=0 fit."""
+    """`fit` and `fit_rate_experts` at the bench shape with multi_k:
+    `profiling.multik_ab` (the fit at multi_k in {0, 4, 16, 64}, one warm
+    and two timed rounds, interleaved) and the expert fit at {0, 8, 32}
+    likewise; every run with the counts zeroed before it: exact launch
+    counts, every chunked fit bit-identical to its multi_k=0 fit."""
     import numpy as np
     import torch
 
-    from lbdrn_msic_tpu_torch.codec import _prepare_tile, plan_rate_points, tile_generator
+    from lbdrn_msic_tpu_torch.codec import plan_rate_points, tile_generator
     from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
-    from lbdrn_msic_tpu_torch.features.engine import lsb_scale
     from lbdrn_msic_tpu_torch.ops import fused_step as fs
-    from lbdrn_msic_tpu_torch.train.loop import fit, fit_rate_experts
+    from lbdrn_msic_tpu_torch.profiling import multik_ab
+    from lbdrn_msic_tpu_torch.train.loop import fit_rate_experts
     from lbdrn_msic_tpu_torch.utils.synth import synth_scene
     from lbdrn_msic_tpu_torch.utils.transfer import put_image
 
@@ -712,64 +776,58 @@ def phase_multi_k(card: str, profile: bool, k3, k4):
     Ks = (3, 4, 5, 6)
     cfgs = [CodecConfig(K=k, base_codec="lpc", train=train) for k in Ks]
     cfg = cfgs[Ks.index(K)]
-    steps = -(-(-(-H * W // 8)) // (train.batch_size // 8))
+    fit_k, steps = multik_ab.bench_fit()
     dev_img = put_image(img, torch.device("cuda"))
-    plane, plane_scale, labels = _prepare_tile(dev_img, K, cfg.features.D)
-    label_scale = float(np.float32(lsb_scale(K)))
     _, dtypes, _, _ = plan_rate_points(img, cfgs)
     kernels = (fs.fused_train_step, fs.fused_expert_step, fs.fused_multi_step,
                fs.fused_expert_multi_step)
-
-    def fit_k(k):
-        return fit(plane, plane_scale, labels, label_scale, tile_generator(train.seed, 0),
-                   cfg.features, cfg.model, train, H, W, C, multi_k=k)
 
     def sweep_k(k):
         return fit_rate_experts(dev_img, Ks, tile_generator(train.seed, 0), cfg.features,
                                 cfg.model, train, H, W, C, tap_dtypes=dtypes, multi_k=k)
 
+    def counted(run, k, runs):
+        """run(k) with the four counts zeroed just before it; appends (k,
+        result, counts) to runs."""
+        for kern in kernels:
+            kern.launches = 0
+        res = run(k)
+        torch.cuda.synchronize()
+        runs.append((k, res, [kern.launches for kern in kernels]))
+        return res
+
     out = {}
-    for what, run, ks, single, multi in (("fit", fit_k, (0, 4, 16, 64), 0, 2),
+    for what, run, ks, single, multi in (("fit", fit_k, multik_ab.VARIANTS, 0, 2),
                                          ("sweep", sweep_k, (0, 8, 32), 1, 3)):
-        rows = {k: {"multi_k": k, "seconds": [], "launches": []} for k in ks}
-        ref = None
-        for rnd in range(3):  # one warm round, two timed, interleaved
-            for k in ks:
-                for kern in kernels:
-                    kern.launches = 0
-                torch.cuda.synchronize()
-                t0 = time.time()
-                res = run(k)
-                torch.cuda.synchronize()
-                secs = time.time() - t0
-                counts = [kern.launches for kern in kernels]
-                want = [0, 0, 0, 0]
-                if k:
-                    want[multi] = train.epochs * -(-steps // k)
-                else:
-                    want[single] = train.epochs * steps
-                assert counts == want, (what, k, counts, want)
-                ref = ref or res
-                assert same_fit(res, ref), (what, k, "chunked fit differs from multi_k=0")
-                if rnd:
-                    rows[k]["seconds"].append(secs)
-                rows[k]["launches"] = counts[multi] if k else counts[single]
-        base = float(np.median(rows[0]["seconds"]))
-        for k in ks:
-            r = rows[k]
-            r["kernel"] = kernels[multi if k else single].__name__
-            r["identical_to_multi_k_0"] = True
-            r["median_s_vs_multi_k_0"] = float(np.median(r["seconds"])) / base
-        out[what] = [rows[k] for k in ks]
+        runs = []
+        samples = multik_ab.ab(lambda k: counted(run, k, runs), ks)
+        ref = runs[0][1]
+        for k, res, counts in runs:
+            want = [0, 0, 0, 0]
+            if k:
+                want[multi] = train.epochs * -(-steps // k)
+            else:
+                want[single] = train.epochs * steps
+            assert counts == want, (what, k, counts, want)
+            assert same_fit(res, ref), (what, k, "chunked fit differs from multi_k=0")
+        base = float(np.median(samples[0]["seconds"]))
+        out[what] = [{"multi_k": k, "seconds": samples[k]["seconds"],
+                      "launches": counts[multi] if k else counts[single],
+                      "kernel": kernels[multi if k else single].__name__,
+                      "best_mse": samples[k]["best_mse"], "identical_to_multi_k_0": True,
+                      "median_s_vs_multi_k_0": float(np.median(samples[k]["seconds"])) / base}
+                     for k, res, counts in runs[-len(ks):]]
     k3["launches"] = out["fit"][2]["launches"]  # at k = 16, as timed in kernels_multi
     k4["launches"] = out["sweep"][1]["launches"]  # at k = 8
     emit({"phase": "multi_k", "shape": [C, H, W], "steps_per_epoch": steps,
-          "epochs": train.epochs, "fit_K": K, "sweep_Ks": list(Ks), **out, "card": card})
+          "epochs": train.epochs, "fit_K": K, "fit": "profiling.multik_ab.bench_fit",
+          "sweep_Ks": list(Ks), **out, "card": card})
 
     if profile:
         for row in out["fit"][:3:2]:  # multi_k 0 and 16
             phase_profile(f"fit multi_k={row['multi_k']}", lambda: fit_k(row["multi_k"]),
                           row["seconds"])
+    return out["fit"]
 
 
 def mv_dist(st_a, st_b) -> float:
@@ -1341,6 +1399,13 @@ def counted_run(fn):
             torch.cuda.max_memory_allocated() / 1e9)
 
 
+# the GF-2-sized runs' epochs (the staging phase's encodes and sweep, the
+# tiles phase's four split_ratio 2 encodes): below the codec's 10 to keep
+# the script inside its time with the validation phase; the per-epoch work
+# and the staging plans are those of e=10
+GF2_EPOCHS = 4
+
+
 def phase_staging(profile: bool, k1, k2):
     """Training above the feature-cache budget: (a) `fit` in each forced
     mode at the bench scene against "cached"; (b) GF-2-sized encodes that
@@ -1390,12 +1455,13 @@ def phase_staging(profile: bool, k1, k2):
     a_s = time.time() - t_phase
 
     # (b) a GF-2-sized scene (reference DLPR_nll_results.py:89-103:
-    # 7605x7815x4, 12-bit) at the bench config, e=10: above the cache budget
+    # 7605x7815x4, 12-bit) at the bench config, e=GF2_EPOCHS: above the
+    # cache budget
     t0 = time.time()
     H, W = 7605, 7815
     big = synth_scene(H, W, channels=C, effective_bits=12, seed=42, fast=True)
     synth_s = time.time() - t0
-    train = TrainSpec(sample_granule=8, epochs=10)
+    train = TrainSpec(sample_granule=8, epochs=GF2_EPOCHS)
     mx = int(big.max())
 
     def decoded(stream, K_):
@@ -1906,10 +1972,25 @@ def phase_sweep_cli(k1, k2, data):
           "total_seconds": time.time() - t_phase})
 
 
-# the tiles phase's GF-2 encodes at split_ratio 2: four of them (the gate
-# open and shut in turn), so fewer epochs than the staging phase's 10 keep
-# the script's time; the gate hides a fixed cost, a tile's upload and prep
-GF2_TILES_EPOCHS = 4
+def tile_stagings(img, cfg):
+    """The staging mode `encode_image` picks for each tile of img."""
+    from lbdrn_msic_tpu_torch.codec import pick_staging
+    from lbdrn_msic_tpu_torch.io.tiles import tile_bounds
+
+    return [pick_staging(h, w, img.shape[0], int(img[:, y:y + h, x:x + w].max()) >> cfg.K,
+                         cfg.features, cfg.train, warn=False)[0]
+            for y, x, h, w in tile_bounds(*img.shape[1:], cfg.split_ratio)]
+
+
+def encode_launches(img, cfg) -> int:
+    """K1 launches of one `encode_image`: epochs x steps, summed over the
+    tiles."""
+    from lbdrn_msic_tpu_torch.io.tiles import tile_bounds
+    from lbdrn_msic_tpu_torch.train.loop import _batch_geometry
+
+    return sum(cfg.train.epochs * _batch_geometry(cfg.train, h, w, st).steps
+               for (_, _, h, w), st in zip(tile_bounds(*img.shape[1:], cfg.split_ratio),
+                                           tile_stagings(img, cfg)))
 
 
 def phase_tiles(k1, gf2=None):
@@ -1919,35 +2000,23 @@ def phase_tiles(k1, gf2=None):
     their predecessor trains) and forced shut, in the order open, shut,
     shut, open: the streams byte-identical, 5120 K1 launches each, the
     decode MSB-exact; (b) GF-2 (7605x7815x4, seed 42,
-    e=GF2_TILES_EPOCHS), four "full" tiles, where a tile's upload and
+    e=GF2_EPOCHS), four "full" tiles, where a tile's upload and
     prep is largest, with the gate open and shut in the same order: the
     streams byte-identical, epochs x steps summed over the tiles K1
     launches each, MSB-exact, seconds and peak device memory beside the
     split_ratio 1 "full" K=5 encode (`gf2`: the staging phase's image and
-    row, at e=10; else both made here, the encode at (b)'s epochs)."""
+    row, at the same epochs; else both made here)."""
     import numpy as np
 
     from lbdrn_msic_tpu_torch import codec
     from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
     from lbdrn_msic_tpu_torch.eval.metrics import psnr
     from lbdrn_msic_tpu_torch.io.tiles import tile_bounds
-    from lbdrn_msic_tpu_torch.train.loop import _batch_geometry
     from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
     t_phase = time.time()
     train = TrainSpec(sample_granule=8, epochs=10)
     sha = lambda b: hashlib.sha256(b).hexdigest()
-
-    def staging_of(img, cfg):
-        mx = int(img.max()) >> cfg.K
-        return [codec.pick_staging(h, w, img.shape[0], mx, cfg.features, cfg.train)[0]
-                for _, _, h, w in tile_bounds(*img.shape[1:], cfg.split_ratio)]
-
-    def want_launches(img, cfg):
-        """K1 launches of one encode: epochs x steps, summed over the tiles."""
-        return sum(cfg.train.epochs * _batch_geometry(cfg.train, h, w, st).steps
-                   for (_, _, h, w), st in zip(tile_bounds(*img.shape[1:], cfg.split_ratio),
-                                               staging_of(img, cfg)))
 
     def encode(img, cfg, gate_open):
         aside = []
@@ -1964,8 +2033,9 @@ def phase_tiles(k1, gf2=None):
     img = synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42)
     cfg = CodecConfig(K=5, split_ratio=2, base_codec="lpc", train=train)
     assert codec.tiles_overlap(img.shape, int(img.max()), 2, cfg)
-    n_a = want_launches(img, cfg)
-    assert n_a == 5120 and staging_of(img, cfg) == ["cached"] * 4, (n_a, staging_of(img, cfg))
+    n_a = encode_launches(img, cfg)
+    assert n_a == 5120 and tile_stagings(img, cfg) == ["cached"] * 4, (n_a,
+                                                                       tile_stagings(img, cfg))
     warm = codec.encode_image(img, cfg)[0]
     runs = {True: [], False: []}
     for gate_open in (True, False, False, True):
@@ -1978,7 +2048,7 @@ def phase_tiles(k1, gf2=None):
     rec, _ = codec.decode_stream(warm)
     assert rec.shape == img.shape and np.array_equal(rec >> 5, img >> 5)
     k1["launches_by_path"]["tiles_bench_sr2"] = n_a
-    a = {"shape": list(img.shape), "split_ratio": 2, "staging": staging_of(img, cfg),
+    a = {"shape": list(img.shape), "split_ratio": 2, "staging": tile_stagings(img, cfg),
          "launches_k1": n_a, "order": "open, shut, shut, open",
          "overlapped": runs[True], "serial": runs[False],
          "overlapped_s": [r["seconds"] for r in runs[True]],
@@ -1987,7 +2057,7 @@ def phase_tiles(k1, gf2=None):
 
     # (b) GF-2 at split_ratio 2, the gate open and shut in turn
     t0 = time.time()
-    train_b = TrainSpec(sample_granule=8, epochs=GF2_TILES_EPOCHS)
+    train_b = TrainSpec(sample_granule=8, epochs=GF2_EPOCHS)
     if gf2 is None:
         big = synth_scene(7605, 7815, channels=4, effective_bits=12, seed=42, fast=True)
         cfg1 = CodecConfig(K=5, base_codec="lpc", train=train_b)
@@ -1998,16 +2068,16 @@ def phase_tiles(k1, gf2=None):
         big = gf2["big"]
         sr1 = {"seconds": gf2["k5_full"]["seconds"],
                "peak_device_gb": gf2["k5_full"]["peak_device_gb"],
-               "staging": gf2["k5_full"]["staging"], "epochs": 10,
+               "staging": gf2["k5_full"]["staging"], "epochs": GF2_EPOCHS,
                "source": "the staging phase's (b)"}
     cfg = CodecConfig(K=5, split_ratio=2, base_codec="lpc", train=train_b)
     assert codec.tiles_overlap(big.shape, int(big.max()), 2, cfg)
-    n_b = want_launches(big, cfg)
+    n_b = encode_launches(big, cfg)
     runs_b, first = {True: [], False: []}, None
     for gate_open in (True, False, False, True):
         (stream, stats), secs, launches, peak = encode(big, cfg, gate_open)
         assert launches == [n_b, 0], (gate_open, launches, n_b)
-        assert [t.staging for t in stats.tiles] == staging_of(big, cfg) == ["full"] * 4, \
+        assert [t.staging for t in stats.tiles] == tile_stagings(big, cfg) == ["full"] * 4, \
             stats.tiles
         first = stream if first is None else first
         assert stream == first, f"gate {'open' if gate_open else 'shut'} gave another stream"
@@ -2139,13 +2209,194 @@ def phase_flagship(k1, k2):
           "total_seconds": time.time() - t_phase})
 
 
+def sweep_launches(images, cfg, ks):
+    """[K1, K2] launches of `scripts.ablations.sweep_variant_csv`: for each
+    scene, one expert fit a plan group (epochs x steps at the plan's
+    staging) where the configs train as experts, else one `encode_image`
+    a K."""
+    import dataclasses
+
+    from lbdrn_msic_tpu_torch import codec
+    from lbdrn_msic_tpu_torch.train.loop import _batch_geometry
+
+    cfgs = [dataclasses.replace(cfg, K=K) for K in ks]
+    k1 = k2 = 0
+    for img in images.values():
+        staging, _, groups, _ = codec.plan_rate_points(img, cfgs)
+        if codec._experts_compatible(cfgs) and staging != "gather":
+            k2 += len(groups) * cfg.train.epochs * _batch_geometry(cfg.train, *img.shape[1:],
+                                                                   staging).steps
+        else:
+            k1 += sum(encode_launches(img, c) for c in cfgs)
+    return [k1, k2]
+
+
+# the validation studies' suites (size, scenes): the scripts' defaults, and
+# the ablations' network group at the bench scene (repro_all's ablations2048)
+VALIDATION_SUITES = {"rd": (512, 3), "ablations": (256, 2), "network": (2048, 1)}
+
+
+def phase_validation(k1, k2, multik):
+    """The reference's validation studies through the port's scripts, each
+    run with the counts zeroed before it (`counted_run`): rd_validation,
+    substitute_anchors, recipe_study and the ablation matrix at their
+    defaults, then the ablations' network group at the bench scene
+    (2048^2, one scene, repro_all's ablations2048).  Launch counts exact,
+    every stream MSB-exact, BD against each study's anchor.  The JPEG 2000
+    anchors and the half-step BDR slot are OpenCV's: without it they are
+    left out (listed) and the LBDRN streams take the lpc base.  multik:
+    the multi_k phase's `profiling.multik_ab` rows."""
+    import tempfile
+
+    from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
+    from lbdrn_msic_tpu_torch.eval.reports import bd_report
+    from lbdrn_msic_tpu_torch.scripts import ablations, rd_validation, recipe_study
+    from lbdrn_msic_tpu_torch.scripts import substitute_anchors as sa
+    from lbdrn_msic_tpu_torch.scripts.suite import synth_suite
+
+    t_phase = time.time()
+    try:
+        import cv2  # noqa: F401
+
+        opencv = True
+    except ImportError:
+        opencv = False
+    base = "jp2" if opencv else "lpc"
+    left_out = []
+    ks = list(range(1, 7))
+    bd = lambda r: {"bd_rate_pct": r.group_rate["all"], "bd_psnr_db": r.group_psnr["all"]}
+    tmp = tempfile.mkdtemp(prefix="validation_")
+    try:
+        # rd_validation at its defaults: 512^2, 3 scenes, K 1..6, e=10: 18
+        # jobs of 10 x 32 K1 steps
+        size, n_scenes = VALIDATION_SUITES["rd"]
+        imgs_rd = synth_suite(size, n_scenes)
+        n_jobs = len(ks) * n_scenes
+
+        def pipelined_launches(epochs):
+            return [sum(encode_launches(img, CodecConfig(K=K, train=TrainSpec(
+                epochs=epochs, sample_granule=8))) for K in ks for img in imgs_rd.values()), 0]
+
+        sweep, secs, launches, _ = counted_run(lambda: rd_validation.lbdrn_sweep(
+            imgs_rd, ks, 10, 8, os.path.join(tmp, "lbdrn_results.csv"), None, base))
+        assert launches == pipelined_launches(10), launches
+        assert sweep["msb_exact"] == sweep["jobs"] == n_jobs, sweep["msb_exact"]
+        rd = {"size": size, "scenes": n_scenes, "Ks": ks, "epochs": 10, "base_codec": base,
+              "seconds": secs, "launches_k1": launches[0],
+              "msb_exact": f"{n_jobs}/{n_jobs}",
+              "psnr_db_bpsp": {f"K{K}": [sweep["rd"][(K, "scene0")][i] for i in (1, 2)]
+                               for K in ks}}
+        if opencv:
+            t0 = time.time()
+            anchor_csvs = rd_validation.anchor_sweep(imgs_rd, 1, 6, tmp)
+            lines, res = rd_validation.bd_lines(anchor_csvs, sweep["csv"], n_scenes, len(ks))
+            base_bd = res["Baseline"]
+            assert base_bd.group_rate["all"] < 0 < base_bd.group_psnr["all"], lines
+            rd.update(anchors_s=time.time() - t0, bd_lines=lines,
+                      bd={m: bd(r) for m, r in res.items()})
+        else:
+            left_out += ["rd_validation: the Baseline, JPEG2000star and JPEG2000 anchors "
+                         "and their BD lines"]
+        k1["launches_by_path"]["rd_validation"] = launches[0]
+
+        # substitute_anchors at its defaults: 256^2, 2 scenes (host codecs)
+        imgs_abl = synth_suite(*VALIDATION_SUITES["ablations"])
+        t0 = time.time()
+        subs = {"dlpr": sa.dlpr_substitute(imgs_abl, [0, 1, 2, 5, 10, 20], tmp),
+                "jxl": sa.jxl_substitute(imgs_abl, tmp)}
+        if opencv:
+            subs["bdr"] = sa.bdr_halfstep(imgs_abl, range(8, 13), tmp)
+        else:
+            left_out.append("substitute_anchors: the half-step BDR slot (PNG divs)")
+        with open(subs["dlpr"]) as f:
+            tau0 = f.read().splitlines()[1].split(",")
+        # tau=0 is lossless: every scene's PSNR infinite
+        assert tau0[0] == "tau0" and set(tau0[2::4]) == {"inf"}, tau0
+        substitute = {"seconds": time.time() - t0,
+                      "csvs": sorted(os.path.basename(p) for p in subs.values()),
+                      "dlpr_tau0_lossless": True}
+
+        # recipe_study at its defaults: the four recipes over imgs_rd
+        runs, recipe = {}, {"base_codec": base, "recipes": []}
+        for tag, schedule, epochs in recipe_study.RECIPES:
+            r, secs, launches, _ = counted_run(lambda: recipe_study.run_recipe(
+                imgs_rd, ks, tag, schedule, epochs, 8, tmp, None, base))
+            assert launches == pipelined_launches(epochs), (tag, launches)
+            assert r["msb_exact"] == n_jobs, (tag, r["msb_exact"])
+            runs[tag] = r
+            recipe["recipes"].append({"tag": tag, "schedule": schedule, "epochs": epochs,
+                                      "seconds": secs, "s_per_job": r["s_per_job"],
+                                      "launches_k1": launches[0]})
+            k1["launches_by_path"][f"recipe_{tag}"] = launches[0]
+        table, res = recipe_study.recipe_table(runs, n_scenes, len(ks), f"({size}^2 suite)")
+        for row in recipe["recipes"]:
+            row.update(bd(res[row["tag"]]) if row["tag"] in res else {})
+        recipe["table"] = table[5:]
+
+        # the ablation matrix: every variant's sweep counted and checked
+        variants = []
+
+        def counted_sweep(images, cfg, ks_, granule, path, device=None):
+            (out, n_exact), secs, launches, peak = counted_run(
+                lambda: real_sweep(images, cfg, ks_, granule, path, device))
+            want = sweep_launches(images, cfg, ks_)
+            assert launches == want, (path, launches, want)
+            assert n_exact == len(images) * len(ks_), (path, n_exact)
+            variants.append({"csv": path, "seconds": secs, "launches_k1": launches[0],
+                             "launches_k2": launches[1], "peak_device_gb": peak,
+                             "msb_exact": f"{n_exact}/{n_exact}"})
+            return out, n_exact
+
+        def matrix(images, groups, out):
+            rows = {}
+            for group in groups:
+                anchor, _ = ablations.variant_matrix()[group]
+                t0 = time.time()
+                md, csvs = ablations.run_group(images, group, ks, 8, out, None,
+                                               base_codec=base)
+                done = {v["csv"]: v for v in variants}
+                rows[group] = {"anchor": anchor, "seconds": time.time() - t0,
+                               "table": md[1].splitlines(), "variants": {}}
+                for name, path in csvs.items():
+                    v = dict(done[path])
+                    del v["csv"]
+                    if name != anchor:
+                        v.update(bd(bd_report(csvs[anchor], path, len(images), len(ks))))
+                    rows[group]["variants"][name] = v
+            return rows
+
+        real_sweep = ablations.sweep_variant_csv
+        with replaced(ablations, "sweep_variant_csv", counted_sweep):
+            abl = matrix(imgs_abl, ablations.GROUPS, os.path.join(tmp, "ablations"))
+            imgs_net = synth_suite(*VALIDATION_SUITES["network"])
+            net = matrix(imgs_net, ["network"], os.path.join(tmp, "ablations_2048"))
+        for group, rows in (*abl.items(), ("network_2048", net["network"])):
+            for kern, key in ((k1, "launches_k1"), (k2, "launches_k2")):
+                n = sum(v[key] for v in rows["variants"].values())
+                if n:
+                    kern["launches_by_path"][f"ablations_{group}"] = n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "validation", "opencv": opencv, "base_codec": base, "left_out": left_out,
+          "rd_validation": rd, "substitute_anchors": substitute, "recipe_study": recipe,
+          "ablations_256": {"size_scenes": VALIDATION_SUITES["ablations"], "Ks": ks,
+                            "groups": abl},
+          "network_2048": {"size_scenes": VALIDATION_SUITES["network"], "Ks": ks,
+                           **net["network"]},
+          "multik_ab": [{k: row[k] for k in ("multi_k", "seconds", "launches", "kernel",
+                                              "identical_to_multi_k_0")} for row in multik],
+          "total_seconds": time.time() - t_phase})
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "cli", "dataset", "flagship"), default=None,
+    ap.add_argument("--only", choices=("kernels", "cli", "dataset", "flagship", "validation"),
+                    default=None,
                     help="kernels: the kernel phases only; cli: the encode, decode "
                          "and rd phases and the cli phase only; dataset: the dataset "
                          "and sweep_cli phases only; flagship: the tiles and flagship "
-                         "phases only (none of the last three prints the kernels line)")
+                         "phases only; validation: the multi_k and validation phases "
+                         "only (none of the last four prints the kernels line)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one encode, one sweep, two fits, two GF-2 epochs "
                          "and one dataset encode with torch.profiler")
@@ -2204,10 +2455,13 @@ def main():
               "k2_launches_by_path": k2["launches_by_path"],
               "script_seconds": time.time() - t_script})
         return
-    if args.only == "flagship":
+    if args.only in ("flagship", "validation"):
         k1, k2 = {"launches_by_path": {}}, {"launches_by_path": {}}
-        phase_tiles(k1)
-        phase_flagship(k1, k2)
+        if args.only == "flagship":
+            phase_tiles(k1)
+            phase_flagship(k1, k2)
+        else:
+            phase_validation(k1, k2, phase_multi_k(card, args.profile, {}, {}))
         emit({"k1_launches_by_path": k1["launches_by_path"],
               "k2_launches_by_path": k2["launches_by_path"],
               "script_seconds": time.time() - t_script})
@@ -2220,7 +2474,7 @@ def main():
     if args.only != "kernels":
         encoded = phase_codec(args.profile, k1)
         sweep_solos = phase_sweep(args.profile, k2)
-        phase_multi_k(card, args.profile, k3, k4)
+        multik = phase_multi_k(card, args.profile, k3, k4)
         gf2 = phase_staging(args.profile, k1, k2)
         phase_tiles(k1, gf2)
         del gf2
@@ -2229,6 +2483,7 @@ def main():
         phase_cli(k1, encoded, synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42))
         phase_sweep_cli(k1, k2, phase_dataset(args.profile, k1, k2, sweep_solos))
         phase_flagship(k1, k2)
+        phase_validation(k1, k2, multik)
     emit({"phase": "total", "script_seconds": time.time() - t_script})
     emit({"kernels": [k1, k2, k3, k4, *k5]})
     print(card_line(), flush=True)

@@ -1,9 +1,10 @@
 """Profiling counterparts of the JAX package's scripts/profiling/: the
 step-anatomy probes (K5, `kernel_prof`), where the encode's train time goes
-(`step_prof`), the bf16 product A/B (`mm_ab`) and expert-batched
-utilisation (`mfu_experts`).  Each runs as `python -m
-lbdrn_msic_tpu_torch.profiling.<name>` on a CUDA card and prints what its
-JAX script prints; nothing here falls back to the CPU.
+(`step_prof`), the bf16 product A/B (`mm_ab`), expert-batched
+utilisation (`mfu_experts`) and the multi-step chunk A/B (`multik_ab`).
+Each runs as `python -m lbdrn_msic_tpu_torch.profiling.<name>` on a CUDA
+card and prints what its JAX script prints; nothing here falls back to the
+CPU (`multik_ab` runs on the CPU only when given `--device cpu`).
 
 `PEAKS`: an H100's published dense rates (NVIDIA data sheets, at the full
 power limit), the yardsticks of every bound and utilisation the port

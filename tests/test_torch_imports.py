@@ -59,6 +59,15 @@ PORT_MODULES = [
     "lbdrn_msic_tpu_torch.scripts",
     "lbdrn_msic_tpu_torch.scripts.flagship_workload",
     "lbdrn_msic_tpu_torch.scripts.scale_check",
+    "lbdrn_msic_tpu_torch.scripts.suite",
+    "lbdrn_msic_tpu_torch.scripts.make_sample",
+    "lbdrn_msic_tpu_torch.scripts.make_goldens",
+    "lbdrn_msic_tpu_torch.scripts.substitute_anchors",
+    "lbdrn_msic_tpu_torch.scripts.rd_validation",
+    "lbdrn_msic_tpu_torch.scripts.recipe_study",
+    "lbdrn_msic_tpu_torch.scripts.ablations",
+    "lbdrn_msic_tpu_torch.scripts.repro_all",
+    "lbdrn_msic_tpu_torch.profiling.multik_ab",
     "lbdrn_msic_tpu_torch.parallel",
     "lbdrn_msic_tpu_torch.parallel.distributed",
     "chip_smoke",
@@ -96,7 +105,7 @@ def test_prefix_rule_is_exact():
     assert is_jax_pkg("lbdrn_msic_tpu.codec")
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     from lbdrn_msic_tpu_torch.codec import decode_stream, encode_image
@@ -117,3 +126,14 @@ def test_entry_points_default_to_cuda():
                 lambda: mfu_experts.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             run()
+    # the validation studies' command lines stop before any work
+    from lbdrn_msic_tpu_torch.profiling import multik_ab
+    from lbdrn_msic_tpu_torch.scripts import (ablations, make_goldens, make_sample,
+                                              rd_validation, recipe_study, repro_all,
+                                              substitute_anchors)
+
+    for mod in (make_sample, make_goldens, substitute_anchors, rd_validation, recipe_study,
+                ablations, repro_all, multik_ab):
+        with pytest.raises(SystemExit, match="CUDA is not available"):
+            mod.main([] if mod in (repro_all, multik_ab) else ["--out", str(tmp_path / "out")])
+    assert not os.listdir(tmp_path)
