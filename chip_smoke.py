@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only dataset   # the dataset and sweep_cli phases only
     python3 chip_smoke.py --only flagship  # the tiles and flagship phases only
     python3 chip_smoke.py --only validation  # the multi_k and validation phases only
+    python3 chip_smoke.py --only mesh  # the mesh phase only (its references made anew)
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
                                        # one encode, one sweep, the fit at
                                        # multi_k 0 and 16, one epoch of the
@@ -36,8 +37,10 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            ragged with per-expert masks, at the wider layer set, and at the
            coordinate width (150 -> F_pad 256) with per-expert masks; time,
            pass split and design as for K1, bound, plain time; time and
-           bound also at E = 8 (`e8`, the dataset cell's) and at F_pad 256
-           (`coords_f256`); at the ablation sweeps' E = 6 (K 1..6) for the
+           bound also at E = 8 (`e8`, the dataset cell's), at E = 2 (`e2`, a
+           rank's share of the mesh phase's ep = 2 sweep, also held against
+           its plain version and K1 per expert as case `mesh_ep2_e2`) and at
+           F_pad 256 (`coords_f256`); at the ablation sweeps' E = 6 (K 1..6) for the
            bench widths and each expert-compatible ABLATION_WIDTHS shape:
            against the plain step, bit for bit K1 per expert, time, bound
            and plain time
@@ -80,11 +83,11 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
   staging  training above the feature-cache budget, one run each: (a) `fit`
            at the bench scene (e=2) in "full" and "banded" staging, bit for
            bit "cached" at g=8, and "gather" bit for bit "cached" at g=1;
-           (b) a GF-2-sized scene (7605x7815x4, 12-bit, seed 42, e=4):
+           (b) a GF-2-sized scene (7605x7815x4, 12-bit, seed 42, e=2):
            `encode_image` at K=5 must pick "full" and at K=3 "banded", each
-           launching K1 exactly 4 x 7256 = 29024 times (K2 never), decoded
+           launching K1 exactly 2 x 7256 = 14512 times (K2 never), decoded
            with MSBs exact; (c) its rate sweep, K in {3, 4, 5, 6}: "banded",
-           one group, exactly 29024 K2 launches (K1 never), every point
+           one group, exactly 14512 K2 launches (K1 never), every point
            decoded with MSBs exact, K=3 byte-identical to (b)'s K=3 stream,
            K=5 within 0.1 dB of (b)'s "full" K=5.  Seconds, staged bytes
            against `_staging_bytes`' estimate, peak device memory, sha256;
@@ -143,8 +146,8 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            trains) and forced shut, in the order open, shut, shut, open: 5120
            K1 launches each, the streams byte-identical, the decode
            MSB-exact, both orders' seconds; (b) the staging phase's GF-2
-           scene at e=4, four "full" tiles, the gate open and shut in the
-           same order: epochs x steps summed over the tiles (29028) K1
+           scene at e=2, four "full" tiles, the gate open and shut in the
+           same order: epochs x steps summed over the tiles (14514) K1
            launches, MSB-exact, seconds and peak device memory beside
            split_ratio 1's "full" K=5 encode
   flagship `scripts.flagship_workload.run` on GF2_D (7605x7815x4), WFI_A
@@ -171,6 +174,19 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            scene (2048^2, K2 at E = 6 through bc=256, 5120 launches a
            variant); the multi_k phase's multik_ab rows.  Whether OpenCV
            is present, and what its absence left out
+  mesh     multi-card parallelism on the one card: a world of 2 processes,
+           both on cuda:0 over gloo (started by the script, joined with a
+           timeout), each with the launch counts zeroed just before each
+           run and read just after: the ep = 2 rate sweep of the bench scene
+           at K 3..6 (K2 at E = 2 on each rank, 5120 launches each, every
+           stream the sweep phase's byte for byte), the dp = 2 encode at K=5
+           (the exact step with the gradients summed over the ranks, no K1:
+           the same stream on both ranks, MSB-exact, within 0.1 dB of the
+           encode phase's fused encode) and the sp = 2 decode of the encode
+           phase's stream (bit for bit the single-card decode); per rank its
+           seconds, launches, peak device memory and backend; then a world
+           of 1 over NCCL runs the collective helper on CUDA tensors.
+           Multi-card NCCL is not verified (one card)
 Then the whole script's seconds, the kernels line (K1-K4, K5 per variant;
 K1's and K2's launches_by_path per path), the card line, and the final
 status line.  Exits non-zero without
@@ -567,6 +583,8 @@ def phase_expert_kernels(card: str):
                  ("wfi_c8_f256_e1_mask", B, (0.95,), mspec, 8, WFI_D_IN),
                  ("wfi_c8_f256_per_expert_masks", B, (0.95, 0.8, 0.5, 0.2), mspec, 8,
                   WFI_D_IN))]
+    # the mesh phase's ep = 2 sweep: each rank's K2 at E = 2
+    cases.append(check("mesh_ep2_e2", B, None, mspec, C, dim_in, 2))
 
     def timed(n_exp, d_in, densities, c=C, spec=mspec, b=B, n=300):
         """K2's and its plain version's ms a step, and the bound, at
@@ -599,6 +617,7 @@ def phase_expert_kernels(card: str):
     # the dataset cell's E = 8, and the coordinate sweep's F_pad 256 with
     # per-expert masks
     e8 = timed(8, dim_in, None)[0]
+    e2 = timed(2, dim_in, None)[0]  # a rank's share of the ep = 2 sweep
     f256 = timed(E, 150, (1.0, 0.8, 0.5, 0.2))[0]
     # the flagship's WFI chunks (E = 1, C = 8, F_pad 256, a pad mask), and E = 4
     wfi1 = timed(1, WFI_D_IN, (0.95,), 8)[0]
@@ -608,7 +627,7 @@ def phase_expert_kernels(card: str):
           "bytes": nbytes, "ms": kernel["ms"], "passes": passes,
           "pass_2_after_pass_1_ms": kernel["ms"] - pass1_ms(passes), "design": FUSED_STEP_DESIGN,
           "plain_ms": kernel["plain_ms"], "bound_ms": kernel["bound_ms"],
-          "e8": pick(e8), "coords_f256": pick(f256), "wfi_c8_f256_e1": pick(wfi1),
+          "e8": pick(e8), "e2": pick(e2), "coords_f256": pick(f256), "wfi_c8_f256_e1": pick(wfi1),
           "wfi_c8_f256_e4": pick(wfi4), "ablation_widths_e6": widths, "card": card})
     return kernel
 
@@ -1369,7 +1388,7 @@ def phase_sweep(profile: bool, kernel):
 
     if profile:
         phase_profile("sweep", lambda: encode_rate_points(img, cfgs), secs)
-    return {K: solo for K, solo in zip(Ks, solos)}
+    return {K: solo for K, solo in zip(Ks, solos)}, [s for s, _ in res]
 
 
 def same_fit(a, b) -> bool:
@@ -1401,9 +1420,9 @@ def counted_run(fn):
 
 # the GF-2-sized runs' epochs (the staging phase's encodes and sweep, the
 # tiles phase's four split_ratio 2 encodes): below the codec's 10 to keep
-# the script inside its time with the validation phase; the per-epoch work
-# and the staging plans are those of e=10
-GF2_EPOCHS = 4
+# the script inside its time with the validation and mesh phases; the
+# per-epoch work and the staging plans are those of e=10
+GF2_EPOCHS = 2
 
 
 def phase_staging(profile: bool, k1, k2):
@@ -2387,16 +2406,206 @@ def phase_validation(k1, k2, multik):
                                               "identical_to_multi_k_0")} for row in multik],
           "total_seconds": time.time() - t_phase})
 
+# the mesh phase's world: 2 processes sharing cuda:0 over gloo (the card's
+# machine has one card), their group timeout and the parent's join limit
+MESH_WORLD = 2
+MESH_GROUP_TIMEOUT_S = 300
+MESH_JOIN_S = 600
+
+
+def bench_mesh_inputs():
+    """The bench scene and the mesh phase's configs: the sweep's K 3..6 and
+    the encode's K=5 (lpc base, g=8, e=10)."""
+    from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
+    from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+    img = synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42)
+    train = TrainSpec(sample_granule=8, epochs=10)
+    cfgs = [CodecConfig(K=K, base_codec="lpc", train=train) for K in (3, 4, 5, 6)]
+    return img, cfgs, cfgs[2]
+
+
+def mesh_rank(rank: int, world: int, work: str) -> None:
+    """One rank of the mesh phase's gloo world on cuda:0: the ep = 2 rate
+    sweep, the dp = 2 encode and the sp = 2 decode of the stream in `work`,
+    each with the launch counts zeroed just before it and read just after;
+    results pickled to work/rank{rank}.pkl."""
+    import datetime
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lbdrn_msic_tpu_torch.codec import decode_stream, encode_image, encode_rate_points
+    from lbdrn_msic_tpu_torch.ops.fused_step import fused_expert_step, fused_train_step
+    from lbdrn_msic_tpu_torch.parallel.distributed import initialize_cluster
+    from lbdrn_msic_tpu_torch.parallel.shard import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_cluster(init_method="file://" + os.path.join(work, "store"), num_processes=world,
+                       process_id=rank, backend="gloo", device="cuda:0",
+                       timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+    img = np.load(os.path.join(work, "img.npy"))
+    with open(os.path.join(work, "stream.bin"), "rb") as f:
+        stream = f.read()
+    _, cfgs, cfg = bench_mesh_inputs()
+    timeout = datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S)
+    ep, dp = make_mesh(ep=world, timeout=timeout), make_mesh(dp=world, timeout=timeout)
+    out = {"rank": rank, "backend": dist.get_backend()}
+
+    def run(name, fn):
+        fused_train_step.launches = fused_expert_step.launches = 0
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got = fn()
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.time() - t0, "launches_k1": fused_train_step.launches,
+                     "launches_k2": fused_expert_step.launches,
+                     "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+        return got
+
+    out["ep"]["streams"] = [s for s, _ in run("ep", lambda: encode_rate_points(img, cfgs,
+                                                                                mesh=ep))]
+    out["dp"]["stream"] = run("dp", lambda: encode_image(img, cfg, mesh=dp))[0]
+    rec = run("sp", lambda: decode_stream(stream, mesh=dp))[0]
+    out["sp"]["sha256"] = hashlib.sha256(rec.tobytes()).hexdigest()
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_mesh(card: str, k2, sweep_streams=None, encoded=None):
+    """Multi-card parallelism on the one card: a world of MESH_WORLD
+    processes over gloo on cuda:0 runs the ep = 2 sweep (every stream the
+    sweep phase's, K2 at E = 2, epochs x steps launches per rank), the
+    dp = 2 encode (MSB-exact, within 0.1 dB of the single-card fused
+    encode) and the sp = 2 decode of the bench stream (bit for bit the
+    single-card decode); then a world of 1 over NCCL runs the collective
+    helper on CUDA tensors.  The references come from the sweep and encode
+    phases, or are made here (`--only mesh`)."""
+    import datetime
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lbdrn_msic_tpu_torch.codec import decode_stream, encode_image, encode_rate_points
+    from lbdrn_msic_tpu_torch.eval.metrics import psnr
+    from lbdrn_msic_tpu_torch.parallel.distributed import (
+        collect, collect_objects, initialize_cluster)
+    from lbdrn_msic_tpu_torch.parallel.shard import make_mesh
+
+    t_phase = time.time()
+    img, cfgs, cfg = bench_mesh_inputs()
+    n_steps = cfg.train.epochs * -(-(-(-2048 * 2048 // 8)) // (cfg.train.batch_size // 8))
+    if sweep_streams is None:
+        sweep_streams = [s for s, _ in encode_rate_points(img, cfgs)]
+    if encoded is None:
+        stream, _ = encode_image(img, cfg)
+        encoded = {"stream": stream, "psnr_db": psnr(img, decode_stream(stream)[0])}
+    ref_sha = hashlib.sha256(decode_stream(encoded["stream"])[0].tobytes()).hexdigest()
+
+    with tempfile.TemporaryDirectory() as work:
+        np.save(os.path.join(work, "img.npy"), img)
+        with open(os.path.join(work, "stream.bin"), "wb") as f:
+            f.write(encoded["stream"])
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                                   str(r), "--mesh-world", str(MESH_WORLD), "--mesh-work", work],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(MESH_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MESH_JOIN_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        world_s = time.time() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"mesh rank {r} exited {p.returncode}:\n{log[-4000:]}"
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+
+    dp_stream = ranks[0]["dp"]["stream"]
+    rec = decode_stream(dp_stream)[0]
+    p_dp = psnr(img, rec)
+    for r in ranks:
+        assert r["ep"]["streams"] == sweep_streams, "ep sweep differs from the single-card sweep"
+        assert r["ep"]["launches_k2"] == n_steps and r["ep"]["launches_k1"] == 0, r["ep"]
+        assert r["dp"]["stream"] == dp_stream, "the dp ranks returned different streams"
+        assert r["sp"]["sha256"] == ref_sha, "sp decode differs from the single-card decode"
+    assert np.array_equal(rec >> cfg.K, img >> cfg.K), "dp encode: MSB path corrupted"
+    assert abs(p_dp - encoded["psnr_db"]) < 0.1, (p_dp, encoded["psnr_db"])
+    k2["launches_by_path"]["mesh_ep_per_rank"] = ranks[0]["ep"]["launches_k2"]
+
+    # a world of 1 over NCCL: the collective helper on CUDA tensors, over
+    # the default group and over a one-rank mesh's "dp" group
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as work:
+        dev = initialize_cluster(init_method="file://" + os.path.join(work, "store"),
+                                 num_processes=1, process_id=0, device="cuda:0",
+                                 timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+        try:
+            backend = dist.get_backend()
+            t = torch.arange(4, dtype=torch.float32, device=dev)
+            one = make_mesh(dp=1, timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+            s, g = collect(t, None), collect(t, one.get_group("dp"), "gather")
+            torch.cuda.synchronize()
+            assert s.is_cuda and g.is_cuda and torch.equal(s, t) and torch.equal(g[0], t)
+            assert collect_objects({"rank": 0}, None) == [{"rank": 0}]
+        finally:
+            dist.destroy_process_group()
+    nccl_s = time.time() - t0
+
+    per_rank = [{"rank": r["rank"], "backend": r["backend"],
+                 **{f"{k}_{f}": r[k][f] for k in ("ep", "dp", "sp")
+                    for f in ("seconds", "launches_k1", "launches_k2", "peak_device_gb")}}
+                for r in ranks]
+    emit({"phase": "mesh", "world": MESH_WORLD, "device": "cuda:0", "ranks": per_rank,
+          "ep": {"ep": MESH_WORLD, "Ks": [c.K for c in cfgs],
+                 "experts_per_rank": -(-len(cfgs) // MESH_WORLD),
+                 "launches_k2_per_rank": [r["ep"]["launches_k2"] for r in ranks],
+                 "expected_launches_per_rank": n_steps,
+                 "identical_to_sweep_phase": True,
+                 "sha256": [hashlib.sha256(s).hexdigest() for s in sweep_streams]},
+          "dp": {"dp": MESH_WORLD, "K": cfg.K, "psnr_db": p_dp,
+                 "psnr_single_card_fused_db": encoded["psnr_db"], "bpsp": len(dp_stream) * 8
+                 / img.size, "msb_exact": True, "identical_across_ranks": True,
+                 "sha256": hashlib.sha256(dp_stream).hexdigest()},
+          "sp": {"sp": MESH_WORLD, "bit_identical_to_single_card_decode": True,
+                 "sha256": ref_sha},
+          "world_seconds": world_s,
+          "nccl_world_1": {"backend": backend, "completed": True, "seconds": nccl_s},
+          "multi_card_nccl": "unverified", "total_seconds": time.time() - t_phase,
+          "card": card})
+
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "cli", "dataset", "flagship", "validation"),
+    ap.add_argument("--only", choices=("kernels", "cli", "dataset", "flagship", "validation",
+                                       "mesh"),
                     default=None,
                     help="kernels: the kernel phases only; cli: the encode, decode "
                          "and rd phases and the cli phase only; dataset: the dataset "
                          "and sweep_cli phases only; flagship: the tiles and flagship "
                          "phases only; validation: the multi_k and validation phases "
-                         "only (none of the last four prints the kernels line)")
+                         "only; mesh: the mesh phase only (none of the last five "
+                         "prints the kernels line)")
+    # one rank of the mesh phase's world (the script starts them itself)
+    ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-world", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-work", type=str, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one encode, one sweep, two fits, two GF-2 epochs "
                          "and one dataset encode with torch.profiler")
@@ -2409,6 +2618,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
+    if args.mesh_rank is not None:
+        mesh_rank(args.mesh_rank, args.mesh_world, args.mesh_work)
+        return
     from lbdrn_msic_tpu_torch.codecs import _native
     from lbdrn_msic_tpu_torch.ops import _build
 
@@ -2455,6 +2667,15 @@ def main():
               "k2_launches_by_path": k2["launches_by_path"],
               "script_seconds": time.time() - t_script})
         return
+    if args.only == "mesh":
+        k2 = {"launches_by_path": {}}
+        phase_mesh(card, k2)
+        emit({"k2_launches_by_path": k2["launches_by_path"],
+              "script_seconds": time.time() - t_script})
+        print(card_line(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     if args.only in ("flagship", "validation"):
         k1, k2 = {"launches_by_path": {}}, {"launches_by_path": {}}
         if args.only == "flagship":
@@ -2473,7 +2694,7 @@ def main():
     k5 = phase_kernel_prof(card)
     if args.only != "kernels":
         encoded = phase_codec(args.profile, k1)
-        sweep_solos = phase_sweep(args.profile, k2)
+        sweep_solos, sweep_streams = phase_sweep(args.profile, k2)
         multik = phase_multi_k(card, args.profile, k3, k4)
         gf2 = phase_staging(args.profile, k1, k2)
         phase_tiles(k1, gf2)
@@ -2484,6 +2705,7 @@ def main():
         phase_sweep_cli(k1, k2, phase_dataset(args.profile, k1, k2, sweep_solos))
         phase_flagship(k1, k2)
         phase_validation(k1, k2, multik)
+        phase_mesh(card, k2, sweep_streams, encoded)
     emit({"phase": "total", "script_seconds": time.time() - t_script})
     emit({"kernels": [k1, k2, k3, k4, *k5]})
     print(card_line(), flush=True)

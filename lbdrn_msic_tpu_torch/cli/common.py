@@ -1,8 +1,12 @@
 """Shared CLI plumbing: reference-compatible flags -> CodecConfig.
 
 The flags are the JAX package's, flag for flag, plus `--device` (default
-`cuda`; `cpu` only when asked).  `--mesh` (multi-card parallelism) is not
-ported: any value stops the run.
+`cuda`; `cpu` only when asked).  `--mesh dp=N[,ep=M]` runs one process per
+card under torchrun, every process with the same flags:
+
+    torchrun --nproc-per-node N -m lbdrn_msic_tpu_torch.cli.encode --mesh dp=N ...
+
+Rank 0 alone writes the run directory, its logs and outputs.
 """
 
 from __future__ import annotations
@@ -10,6 +14,7 @@ from __future__ import annotations
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from lbdrn_msic_tpu_torch import resolve_device
 from lbdrn_msic_tpu_torch.core.config import CodecConfig, FeatureSpec, ModelSpec, TrainSpec
@@ -28,8 +33,10 @@ def add_codec_args(p: argparse.ArgumentParser, encode: bool = True):
                         "library, its seconds, rebuilt or loaded from its stamp")
     p.add_argument(
         "--mesh", type=str, default=None, metavar="AXES",
-        help="device mesh spec ('dp=N', 'ep=N'): multi-card parallelism is "
-             "not ported yet, so any value stops the run",
+        help="device mesh spec, e.g. 'dp=4', 'ep=8' or 'dp=2,ep=4' (dp x ep "
+             "processes under torchrun, one a card): dp trains each tile "
+             "data-parallel and decodes it in row bands, ep fans a sweep's "
+             "experts out over the ranks",
     )
     if encode:
         p.add_argument("-rn", "--randomness", action="store_true",
@@ -71,15 +78,50 @@ def add_codec_args(p: argparse.ArgumentParser, encode: bool = True):
         p.add_argument("--header-version", type=int, choices=[0, 1], default=1)
 
 
+_MESHES: dict = {}  # (dp, ep) -> the mesh, made once a process
+
+
 def mesh_from_args(args):
-    """None when --mesh is unset; any value stops the run (multi-card
-    parallelism is not ported: ROADMAP queue 6)."""
+    """Parse --mesh 'dp=N[,ep=M]' into the world's mesh (None when the flag
+    is unset).  The world comes from torchrun's environment
+    (`parallel.distributed.initialize_cluster`; the rank's card is
+    cuda:LOCAL_RANK, gloo with --device cpu) unless the process already
+    set one up; without either the run stops, naming torchrun: there is no
+    fallback to one card.  dp * ep must be the world size."""
     spec = getattr(args, "mesh", None)
     if not spec:
         return None
-    raise SystemExit(
-        f"--mesh {spec!r}: multi-card parallelism is not ported to the PyTorch "
-        f"package yet (ROADMAP queue 6); run on one card without --mesh")
+    axes = {"dp": 1, "ep": 1}
+    for part in spec.split(","):
+        name, _, val = part.partition("=")
+        name = name.strip()
+        if name not in axes or not val.strip().isdigit():
+            raise SystemExit(f"bad --mesh axis {part!r} (want dp=N / ep=N)")
+        axes[name] = int(val)
+    from lbdrn_msic_tpu_torch.parallel.distributed import initialize_cluster
+    from lbdrn_msic_tpu_torch.parallel.shard import make_mesh
+
+    if not dist.is_initialized():
+        initialize_cluster(device=None if args.device == "cuda" else args.device)
+    if not dist.is_initialized():
+        n = axes["dp"] * axes["ep"]
+        raise SystemExit(
+            f"--mesh {spec!r} needs one process per card, started by torchrun: "
+            f"torchrun --nproc-per-node {n} -m <this command> --mesh {spec} ... "
+            f"(no torch.distributed world is set up in this process)")
+    key = (axes["dp"], axes["ep"])
+    if key not in _MESHES:
+        try:
+            _MESHES[key] = make_mesh(dp=axes["dp"], ep=axes["ep"])
+        except ValueError as exc:
+            raise SystemExit(f"--mesh {spec!r}: {exc}") from exc
+    return _MESHES[key]
+
+
+def is_writer(mesh) -> bool:
+    """Whether this process writes the run's files: always without a mesh,
+    rank 0 alone under one."""
+    return mesh is None or dist.get_rank() == 0
 
 
 def device_from_args(args) -> torch.device:

@@ -6,6 +6,9 @@ Reference usage (README.md:23):
 Here (on the card by default; `--device cpu` runs on the CPU):
     python -m lbdrn_msic_tpu_torch.cli.decode -i OUT/.../sample.bin -org data/sample.tif
 
+In row bands over N cards (rank 0 writes the outputs):
+    torchrun --nproc-per-node N -m lbdrn_msic_tpu_torch.cli.decode --mesh dp=N ...
+
 Flags and log lines (MSE/PSNR/Total size/bpsp/Time elapsed) are the JAX
 package's, scrape-compatible with the reference's results_summary.py
 regexes (decode.py:210-224).
@@ -21,7 +24,12 @@ import time
 
 import numpy as np
 
-from lbdrn_msic_tpu_torch.cli.common import add_codec_args, device_from_args, mesh_from_args
+from lbdrn_msic_tpu_torch.cli.common import (
+    add_codec_args,
+    device_from_args,
+    is_writer,
+    mesh_from_args,
+)
 from lbdrn_msic_tpu_torch.codec import decode_stream
 from lbdrn_msic_tpu_torch.eval.metrics import PSNR_PEAK
 from lbdrn_msic_tpu_torch.io.tiff import read_tiff, write_tiff
@@ -39,15 +47,18 @@ def main(argv=None) -> int:
     add_codec_args(p, encode=False)
     args = p.parse_args(argv)
     device = device_from_args(args)
-    mesh_from_args(args)
+    mesh = mesh_from_args(args)
+    writer = is_writer(mesh)
 
     dirname = os.path.dirname(args.bin_path) or "."
     if run_is_complete(dirname, "decode.txt", "bpsp"):
-        print("Bitstream already decoded!")
+        if writer:
+            print("Bitstream already decoded!")
         return 0
 
-    log = RunLogger(dirname, "decode.txt")
-    log.info(f"Binstream: {args.bin_path}")
+    if writer:
+        log = RunLogger(dirname, "decode.txt")
+        log.info(f"Binstream: {args.bin_path}")
     t0 = time.time()
     with open(args.bin_path, "rb") as f:
         stream = f.read()
@@ -55,7 +66,9 @@ def main(argv=None) -> int:
 
     bl = BuildLog() if args.compile_log else contextlib.nullcontext()
     with bl:
-        rec, dstats = decode_stream(stream, device=device)
+        rec, dstats = decode_stream(stream, device=device, mesh=mesh)
+    if not writer:
+        return 0
     if args.compile_log:
         print(bl.report(), file=sys.stderr)
     write_decode_outputs(

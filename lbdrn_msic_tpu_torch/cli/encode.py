@@ -7,6 +7,9 @@ Reference usage (README.md:18):
 Here (on the card by default; `--device cpu` runs on the CPU):
     python -m lbdrn_msic_tpu_torch.cli.encode -K 5 -i data/sample.tif ... -o outputs
 
+Data-parallel over N cards (rank 0 writes the outputs):
+    torchrun --nproc-per-node N -m lbdrn_msic_tpu_torch.cli.encode --mesh dp=N ...
+
 Flags, run-directory naming, resume markers and scrape-compatible log lines
 are the JAX package's (its cli/encode.py), which follow the reference
 (encode.py:210-224, :132-155, :283-284).
@@ -24,6 +27,7 @@ from lbdrn_msic_tpu_torch.cli.common import (
     add_codec_args,
     config_from_args,
     device_from_args,
+    is_writer,
     mesh_from_args,
 )
 from lbdrn_msic_tpu_torch.codec import encode_image
@@ -45,10 +49,11 @@ def main(argv=None) -> int:
     add_codec_args(p, encode=True)
     args = p.parse_args(argv)
     device = device_from_args(args)
-    mesh_from_args(args)
+    mesh = mesh_from_args(args)
+    writer = is_writer(mesh)
 
     cfg = config_from_args(args)
-    if args.header_version == 0:
+    if args.header_version == 0 and writer:
         # the v0 HEADER is byte-exact to the reference's layout but the
         # BODY is not reference-wire (docs/FORMAT.md "v0 body deviation
         # record"): reference tooling cannot decode this stream
@@ -60,30 +65,40 @@ def main(argv=None) -> int:
         )
     stem = os.path.splitext(os.path.basename(args.path))[0]
     out_dir = os.path.join(args.output_dir, cfg.run_name(stem))
-    os.makedirs(out_dir, exist_ok=True)
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
     bin_path = os.path.join(out_dir, f"{stem}.bin")
 
     if run_is_complete(out_dir, "encode.txt", "Time elapsed") and os.path.exists(bin_path):
-        print("Bitstream already created!")
+        if writer:
+            print("Bitstream already created!")
         return 0
 
-    log = RunLogger(out_dir, "encode.txt")
+    if writer:
+        log = RunLogger(out_dir, "encode.txt")
     t0 = time.time()
     img = read_tiff(args.path)
-    log.info(f"{args!r}")
+    if writer:
+        log.info(f"{args!r}")
     seed = None
     if args.randomness:
         seed = int.from_bytes(os.urandom(4), "big")
+        if mesh is not None:  # every rank trains from rank 0's draw
+            from lbdrn_msic_tpu_torch.parallel.distributed import collect_objects
+
+            seed = collect_objects(seed, None)[0]
     from lbdrn_msic_tpu_torch.utils.build_log import BuildLog
     from lbdrn_msic_tpu_torch.utils.profiling import trace
 
-    tr = trace(args.trace) if args.trace else contextlib.nullcontext()
+    tr = trace(args.trace) if args.trace and writer else contextlib.nullcontext()
     bl = BuildLog() if args.compile_log else contextlib.nullcontext()
     with tr, bl:
         stream, stats = encode_image(img, cfg, seed=seed, device=device,
                                      header_version=args.header_version,
                                      collect_curves=args.tensorboard,
-                                     bucket=args.bucket)
+                                     bucket=args.bucket, mesh=mesh)
+    if not writer:
+        return 0
     if args.compile_log:
         print(bl.report(), file=sys.stderr)
         log.info(f"compile: {bl.total():.1f}s backend over {bl.built()} programs")

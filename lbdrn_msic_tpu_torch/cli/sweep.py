@@ -13,8 +13,14 @@ directories, log lines and resume markers:
 (`codec.encode_pipelined`); `--batch-experts` trains (image, K) jobs as
 experts (`codec.encode_dataset`); both decode through
 `codec.decode_pipelined_iter`.  `--hosts` / `--host-id` split the jobs
-across processes sharing a filesystem.  `--distributed` and `--mesh`
-(multi-card parallelism) stop the run: ROADMAP queue 6.
+across processes sharing a filesystem; `--distributed` takes them from the
+torch.distributed world of torchrun's processes, each of which then runs
+its own share of the jobs on its own card.  `--mesh dp=N[,ep=M]` runs
+every job on all of torchrun's processes together instead: the per-job
+path hands it to each encode and decode, `--batch-experts` fans the
+experts out over the ep axis (`codec.encode_dataset(mesh=)`); rank 0 alone
+writes.  The two cannot share one world: `--distributed` gives each rank
+different jobs, while a mesh needs every rank in every job.
 """
 
 from __future__ import annotations
@@ -31,9 +37,11 @@ from lbdrn_msic_tpu_torch.cli.common import (
     add_codec_args,
     config_from_args,
     device_from_args,
+    is_writer,
     mesh_from_args,
 )
-from lbdrn_msic_tpu_torch.parallel.distributed import JobScheduler
+from lbdrn_msic_tpu_torch.parallel.distributed import JobScheduler, initialize_cluster
+from lbdrn_msic_tpu_torch.parallel.shard import axis_size
 
 
 def main(argv=None) -> int:
@@ -62,19 +70,26 @@ def main(argv=None) -> int:
     p.add_argument("--host-id", type=int, default=None,
                    help="this process's 0-based index among --hosts (default 0)")
     p.add_argument("--distributed", action="store_true",
-                   help="take --hosts/--host-id from a distributed runtime: "
-                        "not ported yet, so it stops the run")
+                   help="initialize torch.distributed from torchrun's "
+                        "MASTER_ADDR / MASTER_PORT / RANK / WORLD_SIZE and take "
+                        "--hosts/--host-id from the world (each rank on "
+                        "cuda:LOCAL_RANK)")
     add_codec_args(p, encode=True)
     args = p.parse_args(argv)
     device = device_from_args(args)
-    mesh_from_args(args)
+    if args.distributed and args.mesh:
+        raise SystemExit(
+            "--distributed and --mesh cannot share one world: --distributed gives each "
+            "rank its own share of the jobs, while --mesh needs every rank in every "
+            "job; use one of them")
+    mesh = mesh_from_args(args)
 
     if args.pipeline or args.batch_experts:
         if args.retries:
             print("[sweep] note: --retries applies to the per-job scheduler "
                   "path only; --pipeline/--batch-experts rely on rerunning "
                   "the sweep (completed jobs resume-skip)", flush=True)
-        return _pipelined_sweep(args, device)
+        return _pipelined_sweep(args, device, mesh)
 
     sched = _scheduler_from_args(args)
 
@@ -99,20 +114,23 @@ def main(argv=None) -> int:
     ]:
         if on:
             base_flags.append(flag)
+    mesh_flags = ["--mesh", args.mesh] if args.mesh else []
 
     grid = [(path, K) for path in args.paths for K in range(args.k_min, args.k_max + 1)]
 
     def work(job):
         path, K = job
         stem = os.path.splitext(os.path.basename(path))[0]
-        enc_args = ["-i", path, "-o", args.output_dir, "-K", str(K)] + base_flags
-        print(f"[sweep] encode {stem} K={K}")
+        enc_args = ["-i", path, "-o", args.output_dir, "-K", str(K)] + base_flags + mesh_flags
+        if is_writer(mesh):
+            print(f"[sweep] encode {stem} K={K}")
         encode_cli.main(enc_args)
         cfg = dataclasses.replace(config_from_args(args), K=K)
         run_dir = os.path.join(args.output_dir, cfg.run_name(stem))
         bin_path = os.path.join(run_dir, f"{stem}.bin")
-        print(f"[sweep] decode {stem} K={K}")
-        decode_cli.main(["-i", bin_path, "-org", path, "--device", args.device])
+        if is_writer(mesh):
+            print(f"[sweep] decode {stem} K={K}")
+        decode_cli.main(["-i", bin_path, "-org", path, "--device", args.device] + mesh_flags)
 
     # the encode/decode CLIs are themselves idempotent (log-marker resume),
     # so retried jobs skip completed halves
@@ -121,11 +139,12 @@ def main(argv=None) -> int:
 
 
 def _scheduler_from_args(args) -> JobScheduler:
-    """JobScheduler from --hosts/--host-id; --distributed stops the run."""
+    """JobScheduler from --hosts/--host-id, or with --distributed from the
+    torch.distributed world (`initialize_cluster` from torchrun's
+    environment; a single process without one)."""
     if args.distributed:
-        raise SystemExit(
-            "--distributed: multi-card parallelism is not ported to the PyTorch "
-            "package yet (ROADMAP queue 6); give --hosts and --host-id instead")
+        initialize_cluster(device=None if args.device == "cuda" else args.device)
+        return JobScheduler.from_runtime()
     host_id = 0 if args.host_id is None else args.host_id
     if not (0 <= host_id < args.hosts):
         raise SystemExit(f"--host-id {host_id} not in [0, {args.hosts})")
@@ -138,7 +157,7 @@ def _run_dir(args, base_cfg, path, K):
     return stem, run_dir, os.path.join(run_dir, f"{stem}.bin")
 
 
-def _pipelined_sweep(args, device) -> int:
+def _pipelined_sweep(args, device, mesh=None) -> int:
     from lbdrn_msic_tpu_torch.codec import decode_pipelined_iter, encode_dataset, encode_pipelined
     from lbdrn_msic_tpu_torch.io.tiff import read_tiff
     from lbdrn_msic_tpu_torch.utils.logging import RunLogger, run_is_complete
@@ -169,16 +188,23 @@ def _pipelined_sweep(args, device) -> int:
             jobs.append((img, dataclasses.replace(base_cfg, K=K)))
             meta.append((stem, run_dir, bin_path))
 
+    writer = is_writer(mesh)
     if jobs:
         if args.batch_experts:
-            print(f"[sweep] expert-batched encode of {len(jobs)} jobs")
+            if writer:
+                print(f"[sweep] expert-batched encode of {len(jobs)} jobs"
+                      + (f" over mesh ep={axis_size(mesh, 'ep')} x dp={axis_size(mesh, 'dp')}"
+                         if mesh is not None else ""))
             # experts are (image, K) pairs: same-shape jobs batch together
-            # across images
+            # across images, and over the mesh's ranks
             results = encode_dataset(jobs, header_version=args.header_version,
-                                     bucket=args.bucket, device=device)
+                                     bucket=args.bucket, device=device, mesh=mesh)
         else:
-            print(f"[sweep] pipelined encode of {len(jobs)} jobs")
+            if writer:
+                print(f"[sweep] pipelined encode of {len(jobs)} jobs")
             results = encode_pipelined(jobs, bucket=args.bucket, device=device)
+        if not writer:  # rank 0 writes the runs and decodes them
+            return 0
         for (stem, run_dir, bin_path), (stream, stats) in zip(meta, results):
             os.makedirs(run_dir, exist_ok=True)
             log = RunLogger(run_dir, "encode.txt", to_stdout=False)

@@ -7,12 +7,21 @@ the inverse; `encode_rate_points` encodes one image at several K, one
 network per K trained together (the reference's run.sh rate sweep).  Pure
 array-in/array-out.  Streams are the JAX package's v1 format: either
 package decodes the other's streams.
+
+`mesh` (a `parallel.shard.make_mesh` DeviceMesh; None: one card) spreads
+the work over the ranks of a torch.distributed world, SPMD: every rank
+calls the entry point with the same arguments and gets the same result.
+A "dp" axis trains each tile data-parallel (`encode_image`) and decodes
+each tile in row bands (`decode_stream`, `decode_pipelined_iter`); an
+"ep" axis fans the experts of a sweep or a dataset out over the ranks
+(`encode_rate_points`, `encode_dataset`).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import time
 import warnings
 from typing import List, Optional
@@ -50,6 +59,9 @@ from lbdrn_msic_tpu_torch.models.siren import (
     unflatten_params,
     unstack_params,
 )
+from lbdrn_msic_tpu_torch.parallel.distributed import collect_objects
+from lbdrn_msic_tpu_torch.parallel.halo import reconstruct_sp
+from lbdrn_msic_tpu_torch.parallel.shard import axis_rank, axis_size, fit_dp, fit_experts
 from lbdrn_msic_tpu_torch.train.loop import fit, fit_rate_experts
 from lbdrn_msic_tpu_torch.utils.profiling import PhaseTimer
 from lbdrn_msic_tpu_torch.utils.transfer import put_image
@@ -360,19 +372,26 @@ def _adopt_tile(up: _TileOnDevice, done, device: torch.device) -> _TileOnDevice:
 
 def _train_tile(tile: np.ndarray, cfg: CodecConfig, generator: torch.Generator,
                 device: torch.device, use_fused: Optional[bool] = None,
-                bucket: bool = False, up: Optional[_TileOnDevice] = None):
+                bucket: bool = False, up: Optional[_TileOnDevice] = None, mesh=None):
     """Train one tile's network; returns (flat_fn, fit_result).  `up`: the
     tile already on the device (`_upload_tile`), else it is uploaded here;
-    `bucket` as `_upload_tile` takes it."""
+    `bucket` as `_upload_tile` takes it.  With a `mesh` whose "dp" axis is
+    > 1 the tile trains data-parallel over it (`parallel.shard.fit_dp`)."""
     C = tile.shape[0]
     if up is None:
         up = _upload_tile(tile, cfg, device, bucket)
-    result = fit(
-        up.plane, up.plane_scale, up.labels, float(np.float32(lsb_scale(cfg.K))), generator,
-        cfg.features, cfg.model, cfg.train, up.H, up.W, C,
-        staging=up.staging, tap_dtype=up.tap_dtype, use_fused=use_fused, hw=up.hw,
-        device=device,
-    )
+    label_scale = float(np.float32(lsb_scale(cfg.K)))
+    if axis_size(mesh, "dp") > 1:
+        result = fit_dp(mesh, up.plane, up.plane_scale, up.labels, label_scale, generator,
+                        cfg.features, cfg.model, cfg.train, up.H, up.W, C, staging=up.staging,
+                        tap_dtype=up.tap_dtype, hw=up.hw, device=device)
+    else:
+        result = fit(
+            up.plane, up.plane_scale, up.labels, label_scale, generator,
+            cfg.features, cfg.model, cfg.train, up.H, up.W, C,
+            staging=up.staging, tap_dtype=up.tap_dtype, use_fused=use_fused, hw=up.hw,
+            device=device,
+        )
 
     def flat_fn():
         return flatten_params(result.params, cfg.features.feature_dim(C))
@@ -389,6 +408,7 @@ def encode_image(
     header_version: int = 1,
     collect_curves: bool = False,
     bucket: bool = False,
+    mesh=None,
 ) -> tuple[bytes, EncodeStats]:
     """img: (C, H, W) uint16 -> (bitstream, stats).
 
@@ -409,8 +429,23 @@ def encode_image(
     losses land in `TileStats.step_losses`.  `bucket`: train each tile at
     its bucket's shape (`_upload_tile`); RD-equivalent, not byte-identical,
     to the exact-shape encode.
+
+    `mesh`: a "dp" axis > 1 trains every tile data-parallel over its ranks
+    (`_train_tile`), the tiles one after another (no double buffering);
+    the stream is deterministic and RD-equivalent to the single-card one
+    (the exact step, summed over the ranks), not byte-identical.  Under a
+    mesh `bucket` is refused with a RuntimeWarning and the tiles train at
+    their exact shape, as in the JAX package.
     """
     device = resolve_device(device)
+    if mesh is not None and bucket:
+        warnings.warn(
+            "bucket=True requested but shape bucketing applies on a single device "
+            "only (a dp mesh would shard the pad unevenly) — training exact-shape.",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+        bucket = False
     if cfg.base_codec == "jp2":
         require_cv2()  # fail before training, not after it
     if img.ndim == 2:
@@ -421,7 +456,7 @@ def encode_image(
     timer = PhaseTimer()
     nn_streams, base_streams, tiles_stats = [], [], []
     tiles = list(split_image(img, cfg.split_ratio))
-    overlap = tiles_overlap(img.shape, int(img.max()), img.dtype.itemsize, cfg)
+    overlap = mesh is None and tiles_overlap(img.shape, int(img.max()), img.dtype.itemsize, cfg)
 
     def base_of(tile):
         return pool.submit(lambda: encode_base(_msb_plane(tile, cfg.K), cfg.base_codec))
@@ -444,7 +479,7 @@ def encode_image(
                     ahead = (base_of(nxt),
                              upload_pool.submit(_upload_tile_aside, nxt, cfg, device, bucket))
                 flat_fn, result = _train_tile(tile, cfg, tile_generator(seed, tile_idx), device,
-                                              use_fused, up=up)
+                                              use_fused, up=up, mesh=mesh)
             with timer.phase("train_wait"):
                 flat = flat_fn()  # blocks on the device result
             t2 = time.time()
@@ -636,6 +671,8 @@ def encode_rate_points(
     seed: Optional[int] = None,
     use_fused: Optional[bool] = None,
     device=None,
+    header_version: int = 1,
+    mesh=None,
 ) -> List[tuple[bytes, EncodeStats]]:
     """Encode one image at several rate points: one network per K, all
     trained together (`fit_rate_experts`; kernel K2 on the card).
@@ -648,6 +685,9 @@ def encode_rate_points(
     `encode_image(img, cfg, seed)`.  Configs that differ beyond K, and
     sweeps whose banded row taps exceed the budget (`plan_rate_points`:
     "gather"), are encoded one by one with `encode_image` (the same bytes).
+    `header_version` (1 or 0) is every stream's header layout, on every
+    path.  With a `mesh` whose "ep" axis is > 1 the rate points fan out
+    over its ranks (`_encode_jobs_mesh`), each stream the same bytes.
     Returns one (stream, stats) per config, in order.
     """
     device = resolve_device(device)
@@ -655,13 +695,16 @@ def encode_rate_points(
         img = img[None]
     C, H, W = img.shape
     if not _experts_compatible(cfgs):
-        return [encode_image(img, c, seed, use_fused, device) for c in cfgs]
+        return [encode_image(img, c, seed, use_fused, device, header_version) for c in cfgs]
+    if axis_size(mesh, "ep") > 1:
+        return _encode_jobs_mesh([img], [(0, c) for c in cfgs], seed, header_version, mesh,
+                                 device, use_fused=use_fused)
     cfg0 = cfgs[0]
     fspec = cfg0.features
     seed = cfg0.train.seed if seed is None else seed
     staging, dtypes, groups, _ = plan_rate_points(img, cfgs)
     if staging == "gather":
-        return [encode_image(img, c, seed, use_fused, device) for c in cfgs]
+        return [encode_image(img, c, seed, use_fused, device, header_version) for c in cfgs]
 
     results: List[Optional[tuple[bytes, EncodeStats]]] = [None] * len(cfgs)
     dev_img = put_image(img, device)  # one copy for every rate point
@@ -688,10 +731,112 @@ def encode_rate_points(
             with timer.phase("finalize"):  # weight coding, base codec wait
                 for e, i in enumerate(grp):
                     results[i] = _coded_job(cfgs[i], img.shape, flats[e], base_futs[e], result,
-                                            e, t_train / len(grp), t0)
+                                            e, t_train / len(grp), t0, header_version)
             for i in grp:  # the group's phases, shared by its points
                 results[i][1].phases = dict(timer.phases)
     return results  # type: ignore[return-value]
+
+
+def _expert_layout(E: int, ep: int) -> tuple[int, int, int]:
+    """(rounds, ep_eff, Epad) for fanning E experts over an ep-wide axis
+    (the JAX package's rule): ceil(E / ep) rounds are needed regardless, so
+    the experts go to the narrowest part of the axis that finishes in that
+    many rounds — E = 3 on ep = 8 uses 3 ranks, E = 9 on ep = 8 five ranks
+    of two rounds (Epad = 10 slots, one of them spare)."""
+    rounds = -(-E // ep)
+    ep_eff = -(-E // rounds)
+    return rounds, ep_eff, rounds * ep_eff
+
+
+def _encode_jobs_mesh(
+    imgs: List[np.ndarray],
+    ijobs: List[tuple[int, CodecConfig]],
+    seed: Optional[int],
+    header_version: int,
+    mesh,
+    device: torch.device,
+    bucket: bool = False,
+    use_fused: Optional[bool] = None,
+) -> List[tuple[bytes, EncodeStats]]:
+    """(image, K) jobs fanned out as experts over the mesh's "ep" axis
+    (`parallel.shard.fit_experts`; kernel K2 on each rank's card), the
+    JAX package's `_encode_jobs_mesh`.  `ijobs` are (index into imgs, cfg)
+    pairs; the images share one shape, or one bucket with `bucket`
+    (padded by `_pad_to_bucket`, per-expert pad masks), and the configs
+    differ only in K.  By `_expert_layout`, the rank at ep coordinate r
+    trains jobs [r * rounds, (r + 1) * rounds) (the JAX package's spare
+    padded slots train nothing here), starts their host base codecs and
+    codes their streams (`_coded_job`); the finished streams are gathered
+    in job order, so every rank returns all of them.  Each stream is
+    `encode_image`'s at the same seed, byte for byte (with `bucket`,
+    `encode_image(bucket=True)`'s): every expert trains from
+    `tile_generator(seed, 0)` and K2's expert e is K1 on its slices.
+
+    Staging: the experts take "full" taps unless one rank's `rounds`
+    experts exceed the budget together, then "banded" row taps (the JAX
+    package's downgrade loop over the experts ONE rank holds, where it
+    budgets the whole padded stack: a rank stages only its own experts; its
+    "cached" mode is "full" here, since K2 reads taps).  Where even banded
+    taps exceed it, each rank encodes its jobs with `encode_image` (scalar
+    gathers, with a RuntimeWarning), the same bytes."""
+    cfgs = [c for _, c in ijobs]
+    cfg0 = cfgs[0]
+    fspec = cfg0.features
+    C, H, W = imgs[0].shape
+    dims = [tuple(im.shape[1:]) for im in imgs]
+    if bucket:
+        H, W = bucket_dims(H, W, fspec.D)
+    needs_hws = any(dims[i] != (H, W) for i, _ in ijobs)
+    ep, r = axis_size(mesh, "ep"), axis_rank(mesh, "ep")
+    E = len(ijobs)
+    rounds, _, _ = _expert_layout(E, ep)
+    mine = list(range(min(r * rounds, E), min((r + 1) * rounds, E)))
+    gen_seed = cfg0.train.seed if seed is None else seed
+    maxes = {i: int(imgs[i].max()) for i in sorted({i for i, _ in ijobs})}
+    max_msb = max(maxes.values()) >> min(c.K for c in cfgs)
+    g = cfg0.train.sample_granule
+    per = _staging_bytes(H, W, C, fspec, g, _tap_itemsize(max_msb, fspec.relative),
+                         _tap_itemsize(max_msb, False))
+    first = {"cached": 0, "full": 0, "banded": 1}.get(
+        pick_staging(H, W, C, max_msb, fspec, cfg0.train, warn=False)[0], 2)
+    staging = next((mode for mode, b in list(zip(("full", "banded"), per))[first:]
+                    if rounds * b <= STAGE_BUDGET_BYTES), "gather")
+
+    def padded(i):
+        return _pad_to_bucket(imgs[i], fspec.D, H, W) if dims[i] != (H, W) else imgs[i]
+
+    t0 = time.time()
+    done = []
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+        if staging == "gather":
+            _warn_gather_fallback(H, W, C)
+            for e in mine:
+                i, cfg = ijobs[e]
+                done.append((e, encode_image(imgs[i], cfg, gen_seed, use_fused, device,
+                                             header_version, bucket=bucket)))
+        else:
+            base_futs = {e: pool.submit(lambda i=ijobs[e][0], K=ijobs[e][1].K:
+                                        encode_base(_msb_plane(imgs[i], K), cfg0.base_codec))
+                         for e in mine}
+            mine_imgs = {ijobs[e][0] for e in mine}
+            dev_imgs = [put_image(padded(i), device) if i in mine_imgs else None
+                        for i in range(len(imgs))]
+            dtypes = [row_taps_dtype(maxes[i] >> c.K) if staging == "banded"
+                      else tap_matrix_dtype(maxes[i] >> c.K, fspec.relative) for i, c in ijobs]
+            result = fit_experts(
+                mesh, dev_imgs, [c.K for c in cfgs], tile_generator(gen_seed, 0), fspec,
+                cfg0.model, cfg0.train, H, W, C, tap_dtypes=dtypes, use_fused=use_fused,
+                staging=staging, img_of=[i for i, _ in ijobs],
+                hws=[dims[i] for i, _ in ijobs] if needs_hws else None, device=device,
+            )
+            t_train = time.time() - t0
+            for e in mine:
+                i, cfg = ijobs[e]
+                flat = flatten_params(unstack_params(result.params, e), fspec.feature_dim(C))
+                done.append((e, _coded_job(cfg, (C,) + dims[i], flat, base_futs[e], result, e,
+                                           t_train / len(mine), t0, header_version)))
+    results = dict(kv for part in collect_objects(done, mesh.get_group("ep")) for kv in part)
+    return [results[e] for e in range(E)]
 
 
 def encode_dataset(
@@ -735,13 +880,14 @@ def encode_dataset(
     `encode_image(bucket=True)` gates it): images of one bucket are padded
     (`_pad_to_bucket`) and train together with per-expert pad masks
     (`fit_rate_experts(hws=)`); each stream is then
-    `encode_image(bucket=True)`'s.  `mesh` (multi-card expert fan-out) is
-    not ported: ROADMAP queue 6.  `device=None` means CUDA.
+    `encode_image(bucket=True)`'s.  `device=None` means CUDA.
+
+    `mesh`: with an "ep" axis > 1 every group of two or more jobs fans out
+    over the axis in chunks (`_encode_jobs_mesh`), the JAX package's rule:
+    up to max(max_experts, ep) jobs a chunk, 5 x Hb x Wb x C bytes a job
+    within STAGE_BUDGET_BYTES; the streams are the same bytes as without
+    the mesh.  Partner-less jobs encode on every rank as without it.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "encode_dataset(mesh=...): multi-card parallelism is not ported to the "
-            "PyTorch package yet (ROADMAP queue 6)")
     device = resolve_device(device)
     njobs = [(img[None] if img.ndim == 2 else img, cfg) for img, cfg in jobs]
     if any(cfg.base_codec == "jp2" for _, cfg in njobs):
@@ -775,7 +921,7 @@ def encode_dataset(
     for grp in groups:
         if len(grp) > 1:
             gres = _encode_job_group([njobs[j] for j in grp], seed, header_version,
-                                     max_experts, bucket_ok(njobs[grp[0]][1]), device)
+                                     max_experts, bucket_ok(njobs[grp[0]][1]), device, mesh)
             for j, r in zip(grp, gres):
                 results[j] = r
     if singles:
@@ -875,6 +1021,7 @@ def _encode_job_group(
     max_experts: int,
     bucket: bool,
     device: torch.device,
+    mesh=None,
 ) -> List[tuple[bytes, EncodeStats]]:
     """Expert-batch one compatible group of (image, cfg) jobs (one shape,
     or one bucket with `bucket`; configs differing only in K).  See
@@ -888,6 +1035,23 @@ def _encode_job_group(
             idmap[id(img)] = len(uniq)
             uniq.append(img)
         ijobs.append((idmap[id(img)], cfg))
+    if axis_size(mesh, "ep") > 1:
+        # chunks bounded as the JAX package bounds them: ~5x (plane + labels)
+        # bytes a job, at most max(max_experts, ep) jobs
+        C0, H0, W0 = uniq[0].shape
+        Hb, Wb = bucket_dims(H0, W0, gjobs[0][1].features.D) if bucket else (H0, W0)
+        per = 5 * Hb * Wb * C0
+        cap = max(max_experts, axis_size(mesh, "ep"))
+        mchunks: List[List[tuple[int, CodecConfig]]] = [[]]
+        acc = 0
+        for j in ijobs:
+            if mchunks[-1] and (len(mchunks[-1]) >= cap or acc + per > STAGE_BUDGET_BYTES):
+                mchunks.append([])
+                acc = 0
+            mchunks[-1].append(j)
+            acc += per
+        return [r for ch in mchunks
+                for r in _encode_jobs_mesh(uniq, ch, seed, header_version, mesh, device, bucket)]
     # every path of the group trains from the group's draws (the seed contract)
     seeds = None if seed is None else [seed] * len(gjobs)
     # one job per image (a single-rate-point dataset): per-job fits stage
@@ -955,13 +1119,20 @@ def _encode_job_group(
     return results  # type: ignore[return-value]
 
 
-def _dispatch_decode(data: bytes, pt: PhaseTimer, device: torch.device):
+def _dispatch_decode(data: bytes, pt: PhaseTimer, device: torch.device, mesh=None):
     """Header parse, then per tile: base decode, weight decode and the
     device residual dispatch.  Returns (header, finishes), one zero-arg
     finish() per tile that fetches and assembles it.  A row-chunked (v2)
     `lpc` base of a colour-only stream takes the streamed path instead
     (`dispatch_streamed_lpc`, phase "dispatch_pipelined"): its chunks decode
-    on the host while the device computes the bands already decoded."""
+    on the host while the device computes the bands already decoded.
+
+    With a `mesh` whose "dp" axis sp > 1 the streamed path is skipped, and
+    a tile of th rows with th % sp == 0 and th // sp > D decodes in row
+    bands over the axis (`parallel.halo.reconstruct_sp`), the others on
+    this rank alone.  `reconstruct_sp` holds collectives, so it runs in the
+    tile's finish(), on the caller's thread in stream order, never in a
+    dispatch worker."""
     from lbdrn_msic_tpu_torch.codecs import lpc
     from lbdrn_msic_tpu_torch.decode.reconstruct import (
         dispatch_streamed,
@@ -972,6 +1143,7 @@ def _dispatch_decode(data: bytes, pt: PhaseTimer, device: torch.device):
     ptr = header_size(data)
     fspec = header.feature_spec()
     mspec = header.model_spec()
+    sp = axis_size(mesh, "dp")
     pending = []
     for t in range(header.n_tiles):
         nn = data[ptr : ptr + header.nn_bytes[t]]
@@ -982,7 +1154,7 @@ def _dispatch_decode(data: bytes, pt: PhaseTimer, device: torch.device):
         codec_name = header.base_codec if header.version else payload_codec(base_stream)
         # every tile, as the JAX package's decode without a mesh (its `sp == 1`
         # guard is the mesh's data-parallel width, not the split ratio)
-        if codec_name == "lpc" and not fspec.use_coords:
+        if codec_name == "lpc" and sp == 1 and not fspec.use_coords:
             info = lpc.chunk_info(base_stream)  # a header peek before any weight work
             if info is not None and info[5] > 1:  # None: a v1 (one-chunk) stream
                 with pt.phase("dispatch_pipelined"):
@@ -997,11 +1169,15 @@ def _dispatch_decode(data: bytes, pt: PhaseTimer, device: torch.device):
                     continue
         with pt.phase("base_decode"):
             base = decode_base(base_stream, codec_name)
-        C = base.shape[0]
+        C, th, _ = base.shape
         with pt.phase("dispatch"):
             flat = decompress_weights(nn, header.weight_codec)
             params = unflatten_params(flat, fspec.feature_dim(C), C, mspec, device=device)
-            pending.append(dispatch_streamed(base, params, fspec, mspec, header.K, device))
+            if sp > 1 and th % sp == 0 and th // sp > fspec.D:
+                pending.append(functools.partial(reconstruct_sp, mesh, base, params, fspec,
+                                                 mspec, header.K, device))
+            else:
+                pending.append(dispatch_streamed(base, params, fspec, mspec, header.K, device))
     return header, pending
 
 
@@ -1011,14 +1187,15 @@ def _finalize_decode(header, pending, pt) -> np.ndarray:
         return merge_tiles(tiles, header.height, header.width, header.split_ratio)
 
 
-def decode_stream(data: bytes, device=None) -> tuple[np.ndarray, DecodeStats]:
+def decode_stream(data: bytes, device=None, mesh=None) -> tuple[np.ndarray, DecodeStats]:
     """bitstream -> ((C, H, W) uint16 image, stats).  `device=None` means
-    CUDA."""
+    CUDA.  `mesh`: a "dp" axis > 1 decodes each tile in row bands over its
+    ranks (`_dispatch_decode`), bit-identical to the single-card decode."""
     device = resolve_device(device)
     t0 = time.time()
     pt = PhaseTimer()
     with torch.no_grad():
-        header, pending = _dispatch_decode(data, pt, device)
+        header, pending = _dispatch_decode(data, pt, device, mesh)
         img = _finalize_decode(header, pending, pt)
     return img, DecodeStats(elapsed=time.time() - t0, header=header, phases=dict(pt.phases))
 
@@ -1036,15 +1213,12 @@ def decode_pipelined_iter(streams, mesh=None, ahead: int = 2, device=None):
     queued in stream order; results yield in order, bit-identical to
     `decode_stream`.  At most `ahead` + 1 streams are live, and the next
     dispatch waits while the estimate of in-flight host bytes (8 bytes a
-    pixel, read from each header) exceeds DECODE_AHEAD_BYTES.  `mesh`
-    (multi-card decode) is not ported: ROADMAP queue 6.  `device=None`
-    means CUDA."""
+    pixel, read from each header) exceeds DECODE_AHEAD_BYTES.  `mesh` as
+    `decode_stream` takes it: the row-band decodes and their collectives
+    run in the caller's thread as each stream is finalized, in stream
+    order on every rank.  `device=None` means CUDA."""
     import collections
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "decode_pipelined_iter(mesh=...): multi-card parallelism is not ported to "
-            "the PyTorch package yet (ROADMAP queue 6)")
     device = resolve_device(device)
     it = iter(streams)
     inflight = collections.deque()  # (t0, timer, future, estimated bytes)
@@ -1056,7 +1230,7 @@ def decode_pipelined_iter(streams, mesh=None, ahead: int = 2, device=None):
 
     def dispatch(data, pt):
         with torch.no_grad():  # grad mode is per thread
-            return _dispatch_decode(data, pt, device)
+            return _dispatch_decode(data, pt, device, mesh)
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
 

@@ -34,10 +34,12 @@ the JAX package's init params and permutations instead.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lbdrn_msic_tpu_torch import resolve_device
 from lbdrn_msic_tpu_torch.core.config import FeatureSpec, ModelSpec, TrainSpec
@@ -69,12 +71,14 @@ from lbdrn_msic_tpu_torch.models.siren import (
     unstack_params,
 )
 from lbdrn_msic_tpu_torch.ops.fused_step import (
+    _apply_adam,
     fused_expert_multi_step,
     fused_expert_step,
     fused_multi_step,
     fused_train_step,
     reference_train_step,
 )
+from lbdrn_msic_tpu_torch.parallel.distributed import collect
 
 # the staged batches of one multi-step chunk stay under this many bytes
 MULTI_STEP_BYTES = 512 << 20
@@ -118,7 +122,8 @@ def make_lr_schedule(tspec: TrainSpec, steps_per_epoch: int) -> Callable[[int], 
 
 def blocks_mse(params: SirenParams, x_rows: Callable, y_rows: Callable,
                mspec: ModelSpec, H: int, W: int, C: int, block_rows: int,
-               fast_act: bool = False, hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+               fast_act: bool = False, hw: Optional[Tuple[int, int]] = None,
+               dp_group=None) -> torch.Tensor:
     """Full-image MSE over row blocks of R = `block_rows` image rows.
 
     x_rows(r0) / y_rows(r0): the (R*W, padded_in) f32 model inputs and the
@@ -127,10 +132,17 @@ def blocks_mse(params: SirenParams, x_rows: Callable, y_rows: Callable,
     package.  `hw`: the real (height, width) of a bucket-padded tile (H, W
     the bucket's): pixels at row >= hw[0] or column >= hw[1] are left out
     and the SSE is normalized by the real pixel count, in float32 as the
-    JAX package forms it.  Returns a 0-d f32 tensor."""
+    JAX package forms it.  `dp_group`: the blocks are round-robined over
+    the group's ranks and their SSE summed over it (the JAX package's
+    `dataset_mse` under data parallelism), so every rank gets the same
+    MSE.  Returns a 0-d f32 tensor."""
     R = block_rows
     sse = 0.0
-    for b in range(-(-H // R)):
+    first, stride = 0, 1
+    if dp_group is not None:
+        first, stride = dist.get_rank(dp_group), dist.get_world_size(dp_group)
+        sse = torch.zeros((), dtype=torch.float32, device=params.weights[0].device)
+    for b in range(first, -(-H // R), stride):
         if hw is not None and b * R >= hw[0]:
             break  # every later row is padding
         r0 = min(b * R, H - R)
@@ -141,6 +153,8 @@ def blocks_mse(params: SirenParams, x_rows: Callable, y_rows: Callable,
             sse = sse + err[skip * W :].sum()
         else:
             sse = sse + err.view(R, W, C)[skip : hw[0] - r0, : hw[1]].sum()
+    if dp_group is not None:
+        sse = collect(sse, dp_group)
     if hw is None:
         return sse / (H * W * C)
     return sse / float(np.float32(hw[0]) * np.float32(hw[1]) * np.float32(C))
@@ -173,14 +187,19 @@ class Geometry(NamedTuple):
     steps: int
 
 
-def _batch_geometry(tspec: TrainSpec, H: int, W: int, staging: str = "cached") -> Geometry:
-    """The JAX package's batch geometry (train/loop.py:294-314): the
+def _batch_geometry(tspec: TrainSpec, H: int, W: int, staging: str = "cached",
+                    dp: int = 1) -> Geometry:
+    """The JAX package's batch geometry (train/loop.py:266-314): the
     granule is 1 for "gather" and where it does not divide the batch;
-    "banded" counts H * ceil(W / g) granules, which never cross a row."""
+    "banded" counts H * ceil(W / g) granules, which never cross a row.
+    With `dp` > 1 ranks the batch rounds down to a multiple of dp (at least
+    dp) and the granule must also divide each rank's bs / dp slice."""
     n = H * W
     bs = min(tspec.batch_size, n)
+    if dp > 1:
+        bs = max(dp, bs - bs % dp)
     g = tspec.sample_granule if staging != "gather" else 1
-    if g > 1 and bs % g:
+    if g > 1 and (bs % g or bs // dp % g):
         g = 1
     ng_row = banded_geometry(W, g)[1] if staging == "banded" else 0
     n_g = H * ng_row if ng_row else -(-n // g)
@@ -281,6 +300,7 @@ def fit(
     perms: Optional[Sequence[np.ndarray]] = None,
     hw: Optional[Tuple[int, int]] = None,
     device=None,
+    dp_group=None,
 ) -> FitResult:
     """Overfit one network to one image tile.
 
@@ -319,6 +339,18 @@ def fit(
     (`codec._pad_to_bucket`), H and W being the bucket's.  Pixels at row
     >= hw[0] or column >= hw[1] are masked out of every batch in every
     mode, and the eval's SSE is normalized by the real pixel count.
+
+    `dp_group` (a process group; `parallel.shard.fit_dp`): data-parallel
+    training over its ranks, the JAX package's `fit_core` under
+    `shard_map` over "dp".  Every rank draws the same init and
+    permutations; the batch rounds down to a multiple of the group size
+    (`_batch_geometry`) and each rank builds its slice of every batch; each
+    step is the exact autograd step with the SSE, the mask count and the
+    gradients summed over the group (`_dp_step`), so every rank applies
+    the same Adam update of the true mean gradient and the params stay
+    bit-identical across ranks; the eval's row blocks are round-robined
+    and their SSE summed.  The fused kernel does Adam inside its second
+    pass, so `use_fused` and `multi_k` are off here.
     """
     if staging not in ("cached", "full", "banded", "gather"):
         raise ValueError(f"unknown staging mode {staging!r}")
@@ -328,12 +360,18 @@ def fit(
     if use_fused is None:
         use_fused = dev.type == "cuda"
     step_fn = fused_train_step if use_fused else reference_train_step
+    dp, me = 1, 0
+    if dp_group is not None:
+        dp, me = dist.get_world_size(dp_group), dist.get_rank(dp_group)
+        use_fused, multi_k = False, None
+        step_fn = functools.partial(_dp_step, group=dp_group)
     with torch.no_grad():
         plane, plane_scale, labels = plane.to(dev), plane_scale.to(dev), labels.to(dev)
         dim_in = fspec.feature_dim(C)
         padded_in = pad_dim(dim_in)
-        geo = _batch_geometry(tspec, H, W, staging)
+        geo = _batch_geometry(tspec, H, W, staging, dp)
         bs, g, n_g, bpg, steps = geo.bs, geo.g, geo.n_g, geo.bpg, geo.steps
+        bs_l, bpg_l = bs // dp, bpg // dp  # this rank's slice of a batch
         block_rows = feature_block_rows(H, W)
         k = multi_step_k(multi_k, use_fused, 1, bs, padded_in, steps)
         kb = max(k, 1)
@@ -347,8 +385,8 @@ def fit(
         else:
             y_all_g = y_all.view(n_g, g * C)
         # one step's (or one k-step chunk's) batch; columns past dim_in stay 0
-        xbuf = torch.zeros((kb * bs, padded_in), dtype=torch.float32, device=dev)
-        ybuf = torch.empty((kb * bpg, g * C), dtype=torch.float32, device=dev)
+        xbuf = torch.zeros((kb * bs_l, padded_in), dtype=torch.float32, device=dev)
+        ybuf = torch.empty((kb * bpg_l, g * C), dtype=torch.float32, device=dev)
         xeval = torch.zeros((block_rows * W, padded_in), dtype=torch.float32, device=dev)
 
         def slice_rows(r0):
@@ -432,10 +470,10 @@ def fit(
                     count += kc
             else:
                 for s in range(steps):
-                    stage(gi[s])
-                    step_fn(params, m_state, v_state, xbuf, ybuf.view(bs, C), masks[s],
-                            schedule(count), count + 1, mspec, C,
-                            loss_out=step_losses[epoch, s], mm_dtype=mm_dtype)
+                    stage(gi[s, me * bpg_l : (me + 1) * bpg_l])
+                    step_fn(params, m_state, v_state, xbuf, ybuf.view(bs_l, C),
+                            masks[s, me * bs_l : (me + 1) * bs_l], schedule(count), count + 1,
+                            mspec, C, loss_out=step_losses[epoch, s], mm_dtype=mm_dtype)
                     count += 1
 
             if tspec.epochs == 1:
@@ -444,7 +482,8 @@ def fit(
             elif (epoch + 1) % min(tspec.val_every, tspec.epochs) == 0:
                 mse = float(blocks_mse(params, x_rows,
                                        lambda r0: y_all[r0 * W : (r0 + block_rows) * W],
-                                       mspec, H, W, C, block_rows, fast_act=use_fused, hw=hw))
+                                       mspec, H, W, C, block_rows, fast_act=use_fused, hw=hw,
+                                       dp_group=dp_group))
                 if mse < best_mse:  # strict improvement, one sync per epoch
                     best = params.map(torch.clone)
                     best_mse, best_epoch = mse, epoch + 1
@@ -458,6 +497,33 @@ def fit(
             staging=staging,
             staged_bytes=staged.numel() * staged.element_size(),
         )
+
+
+def _dp_step(params, m_state, v_state, x, y, mask, lr, step, mspec, dim_out, group,
+             loss_out, mm_dtype=None):
+    """One data-parallel exact step of `fit(dp_group=)`, in place on
+    params/m/v: this rank's masked SSE and its gradients (autograd, exact
+    `torch.sin`, f32 whatever `mm_dtype`), then one sum over the group of
+    [SSE, mask count x C, every gradient], so each rank applies Adam to
+    the gradient of the global loss SSE / max(count, 1), the true mean
+    (the JAX package's dp loop psums the gradient of the already-psummed
+    loss again and so hands optax dp times it; Adam cancels that factor
+    but for eps)."""
+    leaves = [t.detach().requires_grad_(True) for t in params.leaves()]
+    L = len(params.weights)
+    with torch.enable_grad():
+        pred = forward(SirenParams(leaves[:L], leaves[L:]), x, mspec)
+        se = ((pred - y) ** 2 * mask[:, None]).sum()
+        grads = torch.autograd.grad(se, leaves)
+    cnt = mask.sum() * dim_out
+    flat = collect(torch.cat([se.detach().view(1), cnt.view(1)] + [g_.reshape(-1) for g_ in grads]),
+                   group)
+    inv = 1.0 / torch.clamp(flat[1], min=1.0)
+    sizes = [t.numel() for t in leaves]
+    gsum = [p.view(t.shape) * inv for p, t in zip(torch.split(flat[2:], sizes), leaves)]
+    _apply_adam(params, m_state, v_state, gsum[:L], gsum[L:], lr, step)
+    loss_out.copy_(flat[0] * inv)
+    return params, m_state, v_state, loss_out
 
 
 def _exact_expert_step(params, m_state, v_state, x, y, mask, lr, step, mspec, dim_out,

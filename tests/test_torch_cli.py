@@ -138,8 +138,9 @@ def test_bench_flags_give_the_bench_config():
 
 def test_v0_warning_mesh_and_device_refusals(tmp_path, capsys, monkeypatch):
     """--header-version 0 warns on stderr (v1 stays quiet) and its stream
-    decodes in the JAX package; --mesh stops the run; without CUDA and
-    without --device cpu the run stops with a non-zero exit."""
+    decodes in the JAX package; --mesh without a torch.distributed world
+    stops the run naming torchrun (no fallback to one card); without CUDA
+    and without --device cpu the run stops with a non-zero exit."""
     img, tif = _scene(tmp_path, "v0", 51)
     out = str(tmp_path / "out")
     assert encode.main(["-i", tif, "-o", out, "-K", "5", "--header-version", "0"] + FAST) == 0
@@ -161,10 +162,14 @@ def test_v0_warning_mesh_and_device_refusals(tmp_path, capsys, monkeypatch):
         assert np.array_equal(theirs >> 5, img >> 5)
         _flips_ok(ours, theirs)
 
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
     for main in (encode.main, decode.main):
         args = ["-i", tif, "-o", out] if main is encode.main else ["-i", "x.bin"]
-        with pytest.raises(SystemExit, match="not ported"):
+        with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
             main(args + ["--mesh", "dp=2", "--device", "cpu"])
+        with pytest.raises(SystemExit, match="bad --mesh axis"):
+            main(args + ["--mesh", "sp=2", "--device", "cpu"])
     if not torch.cuda.is_available():
         for main, args in ((encode.main, ["-i", tif, "-o", out, "-K", "4"]),
                            (decode.main, ["-i", "x.bin"])):

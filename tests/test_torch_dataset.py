@@ -392,9 +392,18 @@ def test_dataset_streams_cross_decode():
 
 
 def test_dataset_mesh_and_default_device():
-    jobs = [(synth_scene(40, 40, channels=C, seed=1), _cfg(4))]
-    with pytest.raises(NotImplementedError, match="queue 6"):
-        codec.encode_dataset(jobs, mesh=object(), device="cpu")
+    """A mesh whose "ep" axis is 1 keeps the single-card path, byte for
+    byte (the fan-out itself: tests/test_torch_mesh.py); a mesh needs a
+    torch.distributed world, and without one make_mesh names torchrun."""
+    from lbdrn_msic_tpu_torch.parallel.shard import make_mesh
+
+    im = synth_scene(40, 40, channels=C, seed=1)
+    jobs = [(im, _cfg(4)), (im, _cfg(5))]
+    one_rank = types.SimpleNamespace(size=lambda dim: 1, get_local_rank=lambda name: 0)
+    assert ([s for s, _ in codec.encode_dataset(jobs, mesh=one_rank, device="cpu")]
+            == [s for s, _ in codec.encode_dataset(jobs, device="cpu")])
+    with pytest.raises(RuntimeError, match="torchrun"):
+        make_mesh(ep=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             codec.encode_dataset(jobs)

@@ -70,6 +70,8 @@ PORT_MODULES = [
     "lbdrn_msic_tpu_torch.profiling.multik_ab",
     "lbdrn_msic_tpu_torch.parallel",
     "lbdrn_msic_tpu_torch.parallel.distributed",
+    "lbdrn_msic_tpu_torch.parallel.shard",
+    "lbdrn_msic_tpu_torch.parallel.halo",
     "chip_smoke",
 ]
 

@@ -4,7 +4,8 @@ tests/test_distributed.py:16-60): the per-job, `--pipeline` and
 `--batch-experts` modes give the same streams; the run directories, their
 files and their log lines are the JAX `cli.sweep`'s on the same inputs and
 flags, `--hosts` / `--host-id` partitions included; a rerun resumes
-without training; `--mesh` and `--distributed` stop the run."""
+without training; `--mesh` without a world and `--distributed` with
+`--mesh` stop the run."""
 
 import os
 import re
@@ -173,13 +174,21 @@ def test_sweep_dirs_and_logs_match_jax(mode, tifs, tmp_path, capsys):
                 _log_keys(os.path.join(jout, run, log), jout), (run, log)
 
 
-def test_sweep_refusals(tifs, tmp_path):
-    """`--mesh` and `--distributed` stop the run naming ROADMAP queue 6; a
-    host id out of range stops it; without CUDA and `--device cpu` it
-    stops before any work."""
+def test_sweep_refusals(tifs, tmp_path, monkeypatch):
+    """`--mesh` without a torch.distributed world stops the run naming
+    torchrun; `--distributed` with `--mesh` stops it saying why one world
+    cannot do both; a host id out of range stops it; without CUDA and
+    `--device cpu` it stops before any work.  (`--mesh` under a world:
+    tests/test_torch_mesh_cli.py.)"""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
     out = str(tmp_path / "out")
-    for extra in (["--mesh", "ep=2"], ["--distributed"], ["--distributed", "--pipeline"]):
-        with pytest.raises(SystemExit, match="queue 6"):
+    for extra in (["--mesh", "ep=2"], ["--mesh", "ep=2", "--pipeline"]):
+        with pytest.raises(SystemExit, match="torchrun"):
+            sweep.main(["-i", *tifs, "-o", out, *FLAGS, *CPU, *extra])
+    for extra in (["--distributed", "--mesh", "ep=2"],
+                  ["--distributed", "--mesh", "dp=2", "--batch-experts"]):
+        with pytest.raises(SystemExit, match="cannot share one world"):
             sweep.main(["-i", *tifs, "-o", out, *FLAGS, *CPU, *extra])
     with pytest.raises(SystemExit, match="host-id"):
         sweep.main(["-i", *tifs, "-o", out, *FLAGS, *CPU, "--hosts", "2", "--host-id", "2"])
