@@ -100,7 +100,13 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            tile2048 agrees with full_dg to summation order; then the
            profiling path itself, variant by variant with the counts
            zeroed before it: three 512-step runs (median device time)
-           beside the bound and the plain time, and the launches it made
+           beside the bound and the plain time, and the launches it made;
+           each variant's design, product route (ffma, wgmma_tf32,
+           wgmma_3xtf32), rows a CTA and time less prod_f32's in the same
+           call (the anatomy reading); ptxas registers and spills of every
+           K5 instantiation and of K1's step_partials / multi_step from the
+           build log, and the HGMMA / HMMA counts of K5's SASS (cuobjdump):
+           the wgmma variants must issue HGMMA and no K5 kernel mma.sync
   cli      the command lines, each `main(argv)` called in this process on
            the bench scene written as a TIFF (the port's write_tiff) with the
            bench flags -K 5 -g 8 --base-codec lpc: (a) cli.encode launches K1
@@ -202,6 +208,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1149,18 +1156,110 @@ def phase_kernel_prof(card: str):
         entry["launches"] = launches
         entry["steps_per_run"] = kp.STEPS
         kernels.append(entry)
-        timing.append({"variant": name, "product": product, "rows_per_cta": kp.cta_rows(name),
+        if mode.startswith("prod"):
+            design = {"design": "k1", "instantiation": None}
+        else:
+            design = {"design": kp.DESIGN, "instantiation": K5_INSTANTIATIONS[name]}
+        timing.append({"variant": name, "product": product, "route": kp.route(name),
+                       **design, "rows_per_cta": kp.cta_rows(name),
                        "ms_512_steps": ms_run, "ms_512_steps_runs": runs,
                        "ms_per_step": ms_run / kp.STEPS,
+                       "delta_vs_prod_f32_ms": ms_run / kp.STEPS - timing[0]["ms_per_step"]
+                       if timing else 0.0,
                        "bound_ms_per_step": entry["bound_ms"], "bound_by": entry["bound_by"],
                        "plain_ms_per_step": plain_ms, "launches": launches,
                        "kernel": "K1" if mode.startswith("prod") else "K5"})
+    assert timing[0]["variant"] == "prod_f32"
+    # registers and spills from this run's build log; wgmma in K5's SASS
+    from lbdrn_msic_tpu_torch.ops import _build
+
+    ptxas = {src: ptxas_table(_build.build_log.get(src, {}).get("ptxas", ""))
+             for src in ("kernel_prof", "fused_step")}
+    ptxas["fused_step"] = {k: v for k, v in ptxas["fused_step"].items()
+                           if k.startswith(("step_partials", "multi_step"))}
+    sass = sass_counts(os.path.join(_build.BUILD_DIR, "libkernel_prof.so"))
+    if sass is not None:
+        for name in ("prec_default", "prec_high"):
+            if not sass.get(K5_INSTANTIATIONS[name], {}).get("HGMMA"):
+                failed.append(f"{name}: no HGMMA in {K5_INSTANTIATIONS[name]}'s SASS")
+        if any(c["HMMA"] for c in sass.values()):
+            failed.append("K5's SASS holds mma.sync (HMMA)")
     emit({"phase": "kernel_prof", "B": kp.B, "widths": dims, "checks": checks,
           "full_t_bit_identical_to_full_dg": "full_t != full_dg bit for bit" not in failed,
           "tile2048_vs_full_dg_max_mv_err_over_largest": tile_mv, "timing": timing,
-          "failed": failed, "card": card})
+          "ptxas": ptxas, "sass": sass, "failed": failed, "card": card})
     assert not failed, failed
     return kernels
+
+
+# the pass-1 instantiation of each K5 variant (csrc/kernel_prof.cu kPartials)
+K5_INSTANTIATIONS = {
+    "full_t": "prof_ffma<0, false, true, false>", "full_dg": "prof_ffma<0, false, false, true>",
+    "tile2048": "prof_ffma<0, false, false, true>",
+    "fast_full": "prof_ffma<1, false, true, false>", "prec_default": "prof_tc<false>",
+    "prec_high": "prof_tc<true>", "fwd_notrans": "prof_ffma<2, true, false, false>"}
+
+
+def short_names(mangled) -> dict:
+    """{mangled: demangled name with its template arguments and without its
+    namespace and parameters} through c++filt (the mangled name where c++filt
+    is missing)."""
+    mangled = list(mangled)
+    tool = shutil.which("c++filt")
+    if not tool or not mangled:
+        return {m: m for m in mangled}
+    out = subprocess.run([tool], input="\n".join(mangled), stdout=subprocess.PIPE, text=True,
+                         timeout=60).stdout.splitlines()
+    names = {}
+    for m, d in zip(mangled, out):
+        d = d.split("(anonymous namespace)::")[-1]
+        names[m] = d[:d.index("(")] if "(" in d else d
+    return names
+
+
+def ptxas_table(text: str) -> dict:
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    `nvcc -Xptxas -v` output (the build log of a library built in this run)."""
+    table, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1)
+            table[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            table[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            table[cur]["registers"] = int(m.group(1))
+    names = short_names(table)
+    return {names[k]: v for k, v in table.items()}
+
+
+def sass_counts(lib: str):
+    """{kernel: {"HGMMA": n, "HMMA": n}} of a built library's SASS
+    (cuobjdump -sass), or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib], stdout=subprocess.PIPE, text=True,
+                          timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            counts[cur] = {"HGMMA": 0, "HMMA": 0}
+        elif cur:
+            counts[cur]["HGMMA"] += "HGMMA" in ln
+            counts[cur]["HMMA"] += bool(re.search(r"\bHMMA\b", ln))
+    names = short_names(counts)
+    return {names[k]: v for k, v in counts.items()}
 
 
 def busy_seconds(prof) -> float:

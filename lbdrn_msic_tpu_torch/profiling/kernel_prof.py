@@ -31,7 +31,12 @@ csrc/kernel_prof.cu (`variant_step`, its launches counted per variant in
 `variant_step.launches`); prod_* launch K1 (counted on
 `fused_train_step.launches`).  `variant_step_plain` is each variant's
 function in plain torch ops: the CPU takes it, and on the card it exists to
-be compared with.  The JAX script's `mode == "fwd"` branch
+be compared with.  Every kernel variant runs on K1's Hopper pipeline (TMA
+staging, `row_stride` layouts, a two-level pass 2 launched as a
+programmatic dependent), the FFMA ones at any widths that are multiples of
+4, the tensor-core ones (`ROUTE`) on wgmma at the bench widths only
+(`TC_WIDTHS`, 64 rows a CTA); `check_launch_shape` says what a launch
+takes.  The JAX script's `mode == "fwd"` branch
 (kernel_prof.py:155) is reachable from none of its variants and is not
 carried over.
 """
@@ -75,6 +80,12 @@ _KERNEL_IDS = {("full", False): 0, ("full", True): 1, ("fast_full", False): 2,
 KERNEL_VARIANTS = [v for v, (mode, _, _) in VARIANTS.items() if not mode.startswith("prod")]
 # the product of each mode: f32 unless listed
 PRODUCT = {"prec_default": "tf32", "prec_high": "3xtf32", "prod_bf16": "bf16"}
+# the instruction each mode's products run on: FFMA unless listed
+ROUTE = {"prec_default": "wgmma_tf32", "prec_high": "wgmma_3xtf32"}
+# the design of csrc/kernel_prof.cu's variants: K1's Hopper step, one factor changed
+DESIGN = "hopper_k1_pipeline"
+# the widths and rows a CTA of the wgmma pass 1 (csrc/kernel_prof.cu `prof_tc`)
+TC_WIDTHS, TC_ROWS = [F, BC, BC, C], 64
 
 _f32 = lambda v: float(np.float32(v))
 _INV2PI = _f32(0.15915494309189535)
@@ -104,6 +115,13 @@ def tf32_round(t: torch.Tensor) -> torch.Tensor:
     return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
+def tf32_split(t: torch.Tensor):
+    """(big, small): t's TF32 parts for 3xTF32, big = tf32_round(t) and
+    small = tf32_round(t - big), as the kernel writes an operand's planes."""
+    big = tf32_round(t)
+    return big, tf32_round(t - big)
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor, product: str) -> torch.Tensor:
     """a @ b with the product of a variant: f32; one-pass TF32 (rounded
     operands, exact products, f32 sums); 3xTF32 (big and small TF32 parts,
@@ -111,8 +129,7 @@ def _dot(a: torch.Tensor, b: torch.Tensor, product: str) -> torch.Tensor:
     if product == "tf32":
         return torch.matmul(tf32_round(a), tf32_round(b))
     if product == "3xtf32":
-        ab, bb = tf32_round(a), tf32_round(b)
-        a_s, b_s = tf32_round(a - ab), tf32_round(b - bb)
+        (ab, a_s), (bb, b_s) = tf32_split(a), tf32_split(b)
         return (torch.matmul(a_s, bb) + torch.matmul(ab, b_s)) + torch.matmul(ab, bb)
     return torch.matmul(a, b)
 
@@ -168,17 +185,80 @@ def variant_step_plain(params: SirenParams, m_state: SirenParams, v_state: Siren
     return loss
 
 
-def smem_bytes(dims, rows: int, stage_wt: bool) -> int:
-    """Dynamic shared memory of a probe's first pass (csrc/kernel_prof.cu's
-    carve-up, packed without padding): x, y and mask tiles, the block-sum
-    buffer, two gradient buffers of rows x the widest layer, every weight
-    and bias, W^T of layers 1.. when staged, the hidden activations and
-    their w0*cos caches."""
+def route(variant: str) -> str:
+    """The instruction the products of `variant` run on."""
+    return ROUTE.get(VARIANTS[variant][0], "ffma")
+
+
+def core_offset(n: int, k: int, K: int) -> int:
+    """Element (n, k) of an N x K tensor-core operand in shared memory, in
+    floats: wgmma's no-swizzle K-major layout of 8 x 4 core matrices of 128
+    contiguous bytes, an 8-row group's K / 4 core matrices one after the
+    other (csrc/kernel_prof.cu::core_off)."""
+    return (n >> 3) * (8 * K) + (k >> 2) * 32 + (n & 7) * 4 + (k & 3)
+
+
+def tc_layout(planes: int) -> dict:
+    """Region -> (offset, floats) of the wgmma pass 1's shared memory
+    (csrc/kernel_prof.cu `prof_tc`, in its order) at the bench widths, with
+    `planes` TF32 planes per operand (1: TF32, 2: 3xTF32).  Region "a"
+    holds W0^T's planes, then h2's, cos1 and the head's g twice (g1 over
+    h2); g0 takes h1's place."""
+    R, (Fw, H, _, Cw), nc = TC_ROWS, TC_WIDTHS, 8
+    ldx, ldh = fs.row_stride(Fw), fs.row_stride(H)
+    cos, hp, g2 = R * ldh, planes * H * R, planes * nc * R
+    sizes = [("bars", 32), ("x", R * ldx), ("y", R * Cw), ("mask", R), ("red", fs.THREADS),
+             ("bias", 160), ("a", max(planes * H * Fw, hp + cos + 2 * g2)),
+             ("w1t", planes * H * H), ("w2t", planes * nc * H), ("h1", hp), ("cos0", cos),
+             ("g_raw_a", cos), ("g_raw_b", cos)]
+    out, off = {}, 0
+    for name, n in sizes:
+        out[name] = (off, n)
+        off += n
+    return out
+
+
+def smem_bytes(dims, rows: int, variant: str) -> int:
+    """Dynamic shared memory of `variant`'s first pass (csrc/kernel_prof.cu's
+    carve-up; K1's for prod_*).  FFMA variants take K1's: mbarriers, the x
+    tile at `row_stride`, y and mask rows, the block-sum buffer, two
+    gradient buffers at the widest `row_stride`, every weight and bias
+    (full_dg, tile2048: W of layers 1.. as rows at `row_stride(dout)`), W^T
+    of layers 1.. where staged (full_t, fast_full), the hidden activations
+    and, but for fwd_notrans, their w0*cos caches.  wgmma variants:
+    `tc_layout`'s total."""
+    mode, use_dg, _ = VARIANTS[variant]
+    if mode.startswith("prod"):
+        return fs.smem_bytes(list(dims), rows)
+    if mode in ROUTE:
+        _, (off, n) = list(tc_layout(2 if mode == "prec_high" else 1).items())[-1]
+        return 4 * (off + n)
     L = len(dims) - 1
-    P = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(L))
-    wt = sum(dims[l] * dims[l + 1] for l in range(1, L))
-    return 4 * (rows * (dims[0] + dims[-1] + 1) + fs.THREADS + 2 * rows * max(dims[1:]) + P
-                + (wt if stage_wt else 0) + 2 * rows * sum(dims[1:L]))
+    r4, rs = fs._r4, fs.row_stride
+    fwd_only = mode == "fwd_notrans"
+    n = r4(2 * L) + rows * rs(dims[0]) + r4(rows * dims[-1]) + r4(rows) + fs.THREADS
+    n += 2 * rows * max(rs(d) for d in dims[1:])
+    n += sum((dims[l] * rs(dims[l + 1]) if use_dg and l > 0 else r4(dims[l] * dims[l + 1]))
+             + r4(dims[l + 1]) for l in range(L))
+    if not (use_dg or fwd_only):
+        n += sum(dims[l + 1] * rs(dims[l]) for l in range(1, L))
+    n += (1 if fwd_only else 2) * rows * sum(rs(d) for d in dims[1:L])
+    return 4 * n
+
+
+def check_launch_shape(variant: str, dims, batch: int, rows: int) -> None:
+    """Raise ValueError unless csrc/kernel_prof.cu takes `variant` at these
+    widths, batch and rows a CTA: every copy of its TMA staging a 16-byte
+    multiple (widths and rows multiples of 4) and the batch a whole number
+    of CTA tiles; the wgmma variants at `TC_WIDTHS` and `TC_ROWS` only."""
+    mode = VARIANTS[variant][0]
+    if mode in ROUTE and (list(dims) != TC_WIDTHS or rows != TC_ROWS):
+        raise ValueError(f"{variant} runs on wgmma at widths {TC_WIDTHS} and {TC_ROWS} rows "
+                         f"a CTA only, not {list(dims)} at {rows}")
+    if any(d % 4 for d in dims) or rows % 4 or batch % rows:
+        raise ValueError(f"{variant} needs widths and rows a CTA that are multiples of 4 and "
+                         f"a batch of whole CTA tiles: widths {list(dims)}, batch {batch}, "
+                         f"rows {rows}")
 
 
 def cta_rows(variant: str) -> int:
@@ -198,8 +278,8 @@ def _kernel_lib():
         lib.lbdrn_kprof_step.restype = ctypes.c_int
         lib.lbdrn_kprof_step.argtypes = [
             ctypes.POINTER(fs._StepArgs), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
         ]
         _lib = lib
     return _lib
@@ -221,20 +301,25 @@ def _launch(params, m_state, v_state, x, y, mask, variant, mspec, lr, loss_out):
     args = fs._StepArgs.from_buffer_copy(k1_args)
     args.rows = cta_rows(variant)
     dims = [Fx] + [w.shape[1] for w in params.weights]
-    smem = smem_bytes(dims, args.rows, mode != "fwd_notrans" and not use_dg)
+    check_launch_shape(variant, dims, Bx, args.rows)
+    staged = [x, y, mask, *params.weights, *params.biases]
+    if any(t.data_ptr() % 16 for t in staged):
+        raise ValueError("kernel_prof's TMA staging needs 16-byte aligned x, y, mask, weights "
+                         "and biases")
+    smem = smem_bytes(dims, args.rows, variant)
     if smem > fs._smem_optin:
         raise ValueError(f"widths {dims} need {smem} B of shared memory at {args.rows} rows; "
                          f"the device allows {fs._smem_optin}")
-    n_cta = -(-Bx // args.rows)
+    n_tiles, S = Bx // args.rows, fs.scratch_stride(P)
     if loss_out is None:
         loss_out = torch.empty((), dtype=torch.float32, device=dev)
     else:
         fs._check(loss_out, (), "loss_out", dev)
-    scratch = torch.empty((n_cta, P + 2), dtype=torch.float32, device=dev)
+    scratch = torch.empty((n_tiles, S), dtype=torch.float32, device=dev)
     rc = lib.lbdrn_kprof_step(
         ctypes.byref(args), _KERNEL_IDS[mode, use_dg], x.data_ptr(), y.data_ptr(),
-        mask.data_ptr(), scratch.data_ptr(), n_cta, smem, loss_out.data_ptr(),
-        _f32(lr), 1.0, 1.0, _f32(1.0 / (Bx * Cx)), torch.cuda.current_stream(dev).cuda_stream)
+        mask.data_ptr(), scratch.data_ptr(), n_tiles, S, smem, loss_out.data_ptr(), _f32(lr),
+        _f32(1.0 / (Bx * Cx)), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kernel_prof kernel launch failed: CUDA error {rc}")
     return loss_out
