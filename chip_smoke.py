@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only flagship  # the tiles and flagship phases only
     python3 chip_smoke.py --only validation  # the multi_k and validation phases only
     python3 chip_smoke.py --only mesh  # the mesh phase only (its references made anew)
+    python3 chip_smoke.py --only bench  # the bench phase only
     python3 chip_smoke.py --profile    # adds torch.profiler breakdowns of
                                        # one encode, one sweep, the fit at
                                        # multi_k 0 and 16, one epoch of the
@@ -55,10 +56,20 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
   rd       fused-kernel encode vs exact-step (use_fused=False) encode of the
            same scene and seed: PSNR within 0.1 dB
   sweep    the rate sweep of the same scene, K in {3, 4, 5, 6}, "full" tap
-           staging: one warm and three timed `encode_rate_points`, each of
+           staging: one warm and one timed `encode_rate_points`, each of
            which must launch K2 exactly 5120 times (and K1 never); streams
            byte-identical across sweeps; each point decoded (MSBs exact)
            and held against `encode_image` at its K (PSNR within 0.1 dB)
+  bench    the port's bench.py, `scripts.bench.run("cuda")` at its defaults
+           (the encode cell's scene and config with the jp2 base codec: one
+           warm-up encode, sweep and decode, the fused parity check, five
+           timed encodes, three sweeps, three two-scene dataset encodes,
+           three decodes, the exact-step encode), the counts zeroed just
+           before it: K1 exactly 5 + 6 x 5120 launches and K2 exactly 4 x
+           5120 + 3 x 5120 (the dataset one chunk of E = 8); parity true;
+           its line's keys, its unrounded PSNR (in the full run equal to the
+           decode phase's to 1e-9: the base codec changes the stream, not
+           the residuals), seconds, peak device memory and the card line
   kernels_multi  K3 (k steps of K1 in one persistent cooperative launch)
            and K4 (of K2), same source: K3 at k=16, B=8192; ragged/masked
            with a schedule and step0=3; wide; K4 at E=4, k=8, full and
@@ -83,11 +94,11 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
   staging  training above the feature-cache budget, one run each: (a) `fit`
            at the bench scene (e=2) in "full" and "banded" staging, bit for
            bit "cached" at g=8, and "gather" bit for bit "cached" at g=1;
-           (b) a GF-2-sized scene (7605x7815x4, 12-bit, seed 42, e=2):
+           (b) a GF-2-sized scene (7605x7815x4, 12-bit, seed 42, e=1):
            `encode_image` at K=5 must pick "full" and at K=3 "banded", each
-           launching K1 exactly 2 x 7256 = 14512 times (K2 never), decoded
+           launching K1 exactly 1 x 7256 = 7256 times (K2 never), decoded
            with MSBs exact; (c) its rate sweep, K in {3, 4, 5, 6}: "banded",
-           one group, exactly 14512 K2 launches (K1 never), every point
+           one group, exactly 7256 K2 launches (K1 never), every point
            decoded with MSBs exact, K=3 byte-identical to (b)'s K=3 stream,
            K=5 within 0.1 dB of (b)'s "full" K=5.  Seconds, staged bytes
            against `_staging_bytes`' estimate, peak device memory, sha256;
@@ -128,7 +139,7 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            phases
   dataset  the dataset workload (`encode_dataset`), each run with the counts
            zeroed before it: (a) bench.py's dataset cell, scenes 42 and 43 x K
-           in {3, 4, 5, 6}, one warm and three timed runs, each exactly 5120
+           in {3, 4, 5, 6}, one warm and one timed run, each exactly 5120
            K2 launches at E = 8 and no K1, deterministic, every stream
            `encode_image`'s; (b) bucket=True on scene 42 and its 1900x2000
            crop: one chunk, 5120 K2 launches with (E, B) masks, the crop's
@@ -152,12 +163,12 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            trains) and forced shut, in the order open, shut, shut, open: 5120
            K1 launches each, the streams byte-identical, the decode
            MSB-exact, both orders' seconds; (b) the staging phase's GF-2
-           scene at e=2, four "full" tiles, the gate open and shut in the
-           same order: epochs x steps summed over the tiles (14514) K1
+           scene at e=1, four "full" tiles, the gate open and shut in the
+           same order: epochs x steps summed over the tiles (7257) K1
            launches, MSB-exact, seconds and peak device memory beside
            split_ratio 1's "full" K=5 encode
   flagship `scripts.flagship_workload.run` on GF2_D (7605x7815x4), WFI_A
-           (6000^2x8) and PMS_A (6000^2x4) at K 3..6, e=2: bucketed
+           (6000^2x8) and PMS_A (6000^2x4) at K 3..6, e=1: bucketed
            `encode_dataset` a scene, `decode_pipelined_iter`, summarize, the
            Baseline CSV, the BD table; every stream MSB-lossless, K2
            launched epochs x steps per chunk summed over the chunks (K1
@@ -1424,6 +1435,11 @@ def phase_codec(profile: bool, kernel):
     return {"stream": streams[0], "psnr_db": p, "bpsp": stats.bpsp}
 
 
+# timed runs of the sweep phase and of the dataset phase's cell (a): the
+# bench phase times both cells three times, as bench.py does
+CELL_TIMED_RUNS = 1
+
+
 def phase_sweep(profile: bool, kernel):
     import numpy as np
     import torch
@@ -1450,7 +1466,7 @@ def phase_sweep(profile: bool, kernel):
     warm_s = time.time() - t0
     secs, launches = [], []
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
+    for _ in range(CELL_TIMED_RUNS):
         fused_train_step.launches = fused_expert_step.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1459,7 +1475,7 @@ def phase_sweep(profile: bool, kernel):
         launches.append(fused_expert_step.launches)
         assert fused_train_step.launches == 0, fused_train_step.launches
         assert [s for s, _ in res] == warm, "same seed gave different sweep streams"
-    assert launches == [n_steps] * 3, (launches, n_steps)
+    assert launches == [n_steps] * CELL_TIMED_RUNS, (launches, n_steps)
     kernel["launches"] = launches[0]
     kernel["launches_by_path"] = {"sweep": launches[0]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1488,6 +1504,35 @@ def phase_sweep(profile: bool, kernel):
     if profile:
         phase_profile("sweep", lambda: encode_rate_points(img, cfgs), secs)
     return {K: solo for K, solo in zip(Ks, solos)}, [s for s, _ in res]
+
+
+def phase_bench(k1, k2, decode_psnr=None):
+    """`scripts.bench.run` at its defaults, counted; `decode_psnr`: the
+    decode phase's PSNR, which the bench's must equal."""
+    from lbdrn_msic_tpu_torch.scripts import bench
+
+    n_steps = 10 * -(-(-(-2048 * 2048 // 8)) // (8192 // 8))
+    # K1: the parity check's five steps, the warm-up and five timed encodes;
+    # K2: the warm-up and three timed sweeps, three dataset runs
+    want = [5 + 6 * n_steps, 4 * n_steps + 3 * n_steps]
+    rec, secs, launches, peak = counted_run(lambda: bench.run("cuda"))
+    line = rec["line"]
+    assert launches == want, (launches, want)
+    assert line["fused_parity"] is True
+    if decode_psnr is not None:
+        assert abs(rec["psnr_db"] - decode_psnr) <= 1e-9, (rec["psnr_db"], decode_psnr)
+    k1["launches_by_path"]["bench"] = launches[0]
+    k2["launches_by_path"]["bench"] = launches[1]
+    emit({"phase": "bench", **line, "psnr_db_unrounded": rec["psnr_db"],
+          "psnr_exact_step_db": rec["psnr_exact_step_db"], "bpsp_unrounded": rec["bpsp"],
+          "psnr_minus_decode_phase_db": (None if decode_psnr is None
+                                         else rec["psnr_db"] - decode_psnr),
+          "encode_s": rec["encode_s"], "sweep_s_per_point": rec["sweep_s_per_point"],
+          "dataset_s_per_point": rec["dataset_s_per_point"], "decode_s": rec["decode_s"],
+          "encode_phases": rec["phases"], "launches_k1": launches[0],
+          "launches_k2": launches[1], "expected_launches": want, "seconds": secs,
+          "peak_gb": peak, "card": card_line(),
+          "jax_package_rd_point": {"psnr_db": 61.79, "bpsp": 1.958, "source": "BENCH_r05.json"}})
 
 
 def same_fit(a, b) -> bool:
@@ -1519,9 +1564,9 @@ def counted_run(fn):
 
 # the GF-2-sized runs' epochs (the staging phase's encodes and sweep, the
 # tiles phase's four split_ratio 2 encodes): below the codec's 10 to keep
-# the script inside its time with the validation and mesh phases; the
-# per-epoch work and the staging plans are those of e=10
-GF2_EPOCHS = 2
+# the script inside its time with the validation, mesh and bench phases;
+# the per-epoch work and the staging plans are those of e=10
+GF2_EPOCHS = 1
 
 
 def phase_staging(profile: bool, k1, k2):
@@ -1893,7 +1938,7 @@ def phase_dataset(profile: bool, k1, k2, sweep_solos=None):
     assert plan.staging == "full" and plan.chunks == [list(range(8))], plan
     assert plan.budget == codec.STAGE_BUDGET_BYTES, plan.budget
     secs, peaks = [], []
-    for _ in range(3):
+    for _ in range(CELL_TIMED_RUNS):
         res, sec, launches, peak = counted_run(lambda: codec.encode_dataset(jobs_a))
         assert launches == [0, n_steps], launches
         assert [s for s, _ in res] == warm, "same seed gave different dataset streams"
@@ -2221,10 +2266,11 @@ def phase_tiles(k1, gf2=None):
 
 
 # the flagship phase's scenes (one of each group at its real shape), rate
-# points (the cubic BD fit needs four) and epochs
+# points (the cubic BD fit needs four) and epochs (one, to keep the script
+# inside its time with the bench phase)
 FLAGSHIP_SCENES = ("GF2_D", "WFI_A", "PMS_A")
 FLAGSHIP_KS = (3, 4, 5, 6)
-FLAGSHIP_EPOCHS = 2
+FLAGSHIP_EPOCHS = 1
 
 
 def phase_flagship(k1, k2):
@@ -2693,14 +2739,14 @@ def phase_mesh(card: str, k2, sweep_streams=None, encoded=None):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("kernels", "cli", "dataset", "flagship", "validation",
-                                       "mesh"),
+                                       "mesh", "bench"),
                     default=None,
                     help="kernels: the kernel phases only; cli: the encode, decode "
                          "and rd phases and the cli phase only; dataset: the dataset "
                          "and sweep_cli phases only; flagship: the tiles and flagship "
                          "phases only; validation: the multi_k and validation phases "
-                         "only; mesh: the mesh phase only (none of the last five "
-                         "prints the kernels line)")
+                         "only; mesh: the mesh phase only; bench: the bench phase "
+                         "only (none of the last six prints the kernels line)")
     # one rank of the mesh phase's world (the script starts them itself)
     ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-world", type=int, default=None, help=argparse.SUPPRESS)
@@ -2766,10 +2812,14 @@ def main():
               "k2_launches_by_path": k2["launches_by_path"],
               "script_seconds": time.time() - t_script})
         return
-    if args.only == "mesh":
-        k2 = {"launches_by_path": {}}
-        phase_mesh(card, k2)
-        emit({"k2_launches_by_path": k2["launches_by_path"],
+    if args.only in ("mesh", "bench"):
+        k1, k2 = {"launches_by_path": {}}, {"launches_by_path": {}}
+        if args.only == "mesh":
+            phase_mesh(card, k2)
+        else:
+            phase_bench(k1, k2)
+        emit({"k1_launches_by_path": k1["launches_by_path"],
+              "k2_launches_by_path": k2["launches_by_path"],
               "script_seconds": time.time() - t_script})
         print(card_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2794,6 +2844,7 @@ def main():
     if args.only != "kernels":
         encoded = phase_codec(args.profile, k1)
         sweep_solos, sweep_streams = phase_sweep(args.profile, k2)
+        phase_bench(k1, k2, encoded["psnr_db"])
         multik = phase_multi_k(card, args.profile, k3, k4)
         gf2 = phase_staging(args.profile, k1, k2)
         phase_tiles(k1, gf2)

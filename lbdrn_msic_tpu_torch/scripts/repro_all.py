@@ -14,11 +14,10 @@ out/validation (git-ignored):
   ablations2048  network group at 2048^2, one scene       -> <out>/ablations_2048/
   scale          scale_check at the Gaofen shapes          (stdout)
   dataset        scale_check's cross-image dataset A/B     (stdout)
+  bench          the headline benchmark (scripts.bench)    (stdout JSON line)
 
-The JAX script's last step, `bench` (bench.py), has no port counterpart
-yet: `--only bench` stops with an error that says so, and the default run
-prints that it leaves it out.  scripts/r4_measurements.sh is the
-ablations1024, ablations2048 and scale steps.
+scripts/r4_measurements.sh is the ablations1024, ablations2048 and scale
+steps.
 
     python -m lbdrn_msic_tpu_torch.scripts.repro_all [--only rd,recipe]
         [--skip-flagship] [--device cuda|cpu]
@@ -40,8 +39,6 @@ from lbdrn_msic_tpu_torch.scripts.suite import OUT_DEFAULT
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PKG = "lbdrn_msic_tpu_torch"
-# bench.py's counterpart is the benchmark's own piece of work
-NOT_PORTED = {"bench": "bench.py has no port counterpart yet: the benchmark work writes one"}
 
 
 def steps(out: str) -> dict:
@@ -60,6 +57,7 @@ def steps(out: str) -> dict:
         "scale": (scale, ["--flagship"]),
         "dataset": (scale, ["--dataset", "4", "--sizes", "2048", "--channels", "4",
                             "--K", "3", "4", "5", "6"]),
+        "bench": (f"{PKG}.scripts.bench", []),
     }
 
 
@@ -78,14 +76,10 @@ def main(argv=None) -> int:
     device_from_args(args)
     table = steps(os.path.join(REPO, OUT_DEFAULT))
     wanted = list(table) if not args.only else args.only.split(",")
-    for name in wanted:
-        if name in NOT_PORTED:
-            raise SystemExit(f"error: step {name!r}: {NOT_PORTED[name]}")
-        if name not in table:
-            raise SystemExit(f"unknown steps {[name]}; have {list(table)}")
-    print(f"steps: {','.join(wanted)}"
-          + ("" if args.only else f" (left out: {', '.join(NOT_PORTED)}, not ported)"),
-          flush=True)
+    unknown = [w for w in wanted if w not in table]
+    if unknown:
+        raise SystemExit(f"unknown steps {unknown}; have {list(table)}")
+    print(f"steps: {','.join(wanted)}", flush=True)
 
     failures = []
     for name in wanted:

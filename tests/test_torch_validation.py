@@ -19,6 +19,7 @@ import importlib.util
 import io
 import os
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -270,16 +271,22 @@ def test_multik_ab_cpu():
     assert all(len(res[k]["seconds"]) == 2 for k in multik_ab.VARIANTS)
 
 
-def test_repro_all_steps(tmp_path):
-    """--only bench stops with its error (no port counterpart yet); an
-    unknown step stops too; the step table is the JAX script's, bench
-    aside, and writes under --out."""
-    for only, msg in (("bench", "no port counterpart"), ("rd,nope", "unknown steps")):
-        with pytest.raises(SystemExit, match=msg):
-            repro_all.main(["--only", only, "--device", "cpu"])
+def test_repro_all_steps(tmp_path, monkeypatch):
+    """An unknown step stops the run; `--only bench` runs the port's bench
+    with the run's --device; the step table is the JAX script's STEPS in
+    full, bench included, and writes under --out."""
+    with pytest.raises(SystemExit, match="unknown steps"):
+        repro_all.main(["--only", "rd,nope", "--device", "cpu"])
+    cmds = []
+    monkeypatch.setattr(repro_all.subprocess, "run",
+                        lambda cmd, cwd: cmds.append(cmd) or types.SimpleNamespace(returncode=0))
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert repro_all.main(["--only", "bench", "--device", "cpu"]) == 0
+    assert cmds == [[sys.executable, "-m", "lbdrn_msic_tpu_torch.scripts.bench",
+                     "--device", "cpu"]]
     jsteps = _jax_script("repro_all").STEPS
     table = repro_all.steps(str(tmp_path))
-    assert list(table) + list(repro_all.NOT_PORTED) == list(jsteps)
+    assert list(table) == list(jsteps)
     for name, (module, argv) in table.items():
         assert module.startswith("lbdrn_msic_tpu_torch.scripts.")
         jargv = jsteps[name][2:]
