@@ -4,7 +4,7 @@
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --only cli   # encode/decode/rd and cli phases only
     python3 chip_smoke.py --only dataset   # the dataset and sweep_cli phases only
-    python3 chip_smoke.py --only flagship  # the tiles and flagship phases only
+    python3 chip_smoke.py --only flagship  # the staging, tiles and flagship phases only
     python3 chip_smoke.py --only validation  # the multi_k and validation phases only
     python3 chip_smoke.py --only mesh  # the mesh phase only (its references made anew)
     python3 chip_smoke.py --only bench  # the bench phase only
@@ -95,14 +95,19 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            at the bench scene (e=2) in "full" and "banded" staging, bit for
            bit "cached" at g=8, and "gather" bit for bit "cached" at g=1;
            (b) a GF-2-sized scene (7605x7815x4, 12-bit, seed 42, e=1):
-           `encode_image` at K=5 must pick "full" and at K=3 "banded", each
-           launching K1 exactly 1 x 7256 = 7256 times (K2 never), decoded
-           with MSBs exact; (c) its rate sweep, K in {3, 4, 5, 6}: "banded",
-           one group, exactly 7256 K2 launches (K1 never), every point
-           decoded with MSBs exact, K=3 byte-identical to (b)'s K=3 stream,
-           K=5 within 0.1 dB of (b)'s "full" K=5.  Seconds, staged bytes
-           against `_staging_bytes`' estimate, peak device memory, sha256;
-           with --profile, one epoch of each GF-2 encode under the profiler
+           `encode_image` at K=5 and K=3 must pick "full" at the card's
+           staging budget, and K=3 "banded" at the JAX package's budget,
+           each launching K1 exactly 1 x 7256 = 7256 times (K2 never),
+           decoded with MSBs exact, K=3 "full" within 0.1 dB of "banded";
+           (c) its rate sweep, K in {3, 4, 5, 6}, one group, at either
+           budget: "full" and "banded", each exactly 7256 K2 launches (K1
+           never), every point decoded with MSBs exact, K=3 byte-identical
+           to (b)'s K=3 stream of the same staging, the full sweep's K=5 to
+           (b)'s K=5, the banded sweep's K=5 within 0.1 dB of it.  Seconds,
+           staged bytes against `_staging_bytes`' estimate, peak device
+           memory allocated and reserved (each GF-2 run's at most
+           PEAK_LIMIT_GB, 64 GB), sha256; with --profile, one epoch of the
+           "full" K=5 and "banded" K=3 encodes under the profiler
   kernel_prof  K5, the nine step-anatomy probes of
            profiling/kernel_prof.py: each variant's kernel against its plain
            version from the same state, one step and a 5-step chain, at a
@@ -163,20 +168,25 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            trains) and forced shut, in the order open, shut, shut, open: 5120
            K1 launches each, the streams byte-identical, the decode
            MSB-exact, both orders' seconds; (b) the staging phase's GF-2
-           scene at e=1, four "full" tiles, the gate open and shut in the
+           scene at e=1, four "cached" tiles, the gate open and shut in the
            same order: epochs x steps summed over the tiles (7257) K1
-           launches, MSB-exact, seconds and peak device memory beside
-           split_ratio 1's "full" K=5 encode
-  flagship `scripts.flagship_workload.run` on GF2_D (7605x7815x4), WFI_A
+           launches, MSB-exact, seconds and peak device memory (allocated
+           and reserved, at most 64 GB) beside split_ratio 1's "full" K=5
+           encode
+  flagship `scripts.flagship_workload.run` on GF2_D (7605x7815x4, the
+           staging phase's GF-2 scene, not made twice), WFI_A
            (6000^2x8) and PMS_A (6000^2x4) at K 3..6, e=1: bucketed
            `encode_dataset` a scene, `decode_pipelined_iter`, summarize, the
-           Baseline CSV, the BD table; every stream MSB-lossless, K2
-           launched epochs x steps per chunk summed over the chunks (K1
-           never), each scene's K=5 stream `encode_image(bucket=True)`'s
-           byte for byte (else within 0.1 dB), those three streams'
+           Baseline CSV, the BD table; every stream MSB-lossless, the
+           chunks of experts [4] (GF2_D), [3, 1] (WFI_A) and [4] (PMS_A) at
+           the card's staging budget, each scene's encode peaks (allocated
+           and reserved) at most 64 GB, K2 launched epochs x steps per
+           chunk summed over the chunks (K1 never), each scene's K=5
+           stream `encode_image(bucket=True)`'s byte for byte (else within
+           0.1 dB), those three streams'
            pipelined decode bit for bit `decode_stream`, BD-PSNR > 0 and
            BD-Rate < 0 against Baseline in every group; staging, chunks,
-           seconds a job per group, peak device memory
+           seconds a job per group, peak device memory per scene
   validation  the reference's validation studies through the port's
            scripts, each run with the counts zeroed before it:
            rd_validation at its defaults (512^2, 3 scenes, K 1..6, e=10:
@@ -590,7 +600,7 @@ def phase_expert_kernels(card: str):
     # coordinate sweep's (the dataset phase's (d)); and the WFI scenes'
     # shape at the bench widths (F = 200 -> F_pad 256, C = 8) with bucket
     # pad masks: E = 1 with a (1, B) mask, as the flagship's one-expert
-    # chunks run it, and E = 4
+    # chunks run it (WFI_A's last), E = 3 (WFI_A's first chunk) and E = 4
     cases = [check(name, b, dens, spec, c, d_in, E if dens is None else len(dens))
              for name, b, dens, spec, c, d_in in (
                  ("full", B, None, mspec, C, dim_in),
@@ -599,6 +609,7 @@ def phase_expert_kernels(card: str):
                   8, dim_in),
                  ("coords_f256_per_expert_masks", B - 37, (1.0, 0.8, 0.5, 0.2), mspec, C, 150),
                  ("wfi_c8_f256_e1_mask", B, (0.95,), mspec, 8, WFI_D_IN),
+                 ("wfi_c8_f256_e3_masks", B, (0.95, 0.9, 0.8), mspec, 8, WFI_D_IN),
                  ("wfi_c8_f256_per_expert_masks", B, (0.95, 0.8, 0.5, 0.2), mspec, 8,
                   WFI_D_IN))]
     # the mesh phase's ep = 2 sweep: each rank's K2 at E = 2
@@ -1544,22 +1555,47 @@ def same_fit(a, b) -> bool:
             and all(torch.equal(x, y) for x, y in zip(a.params.leaves(), b.params.leaves())))
 
 
-def counted_run(fn):
+def counted_run(fn, fresh=False):
     """fn() with the K1 / K2 launch counts zeroed just before it and read
     just after, and the device's peak memory over it: (result, seconds,
-    [K1, K2] launches, peak GB)."""
+    [K1, K2] launches, peak GB).  `fresh` first returns the allocator's
+    cached blocks to the card, so that the peak reserved bytes read just
+    after are the run's own."""
     import torch
 
     from lbdrn_msic_tpu_torch.ops.fused_step import fused_expert_step, fused_train_step
 
     fused_train_step.launches = fused_expert_step.launches = 0
     torch.cuda.synchronize()
+    if fresh:
+        torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     out = fn()
     torch.cuda.synchronize()
     return (out, time.time() - t0, [fused_train_step.launches, fused_expert_step.launches],
             torch.cuda.max_memory_allocated() / 1e9)
+
+
+# the most device memory, allocated or reserved, a Gaofen-sized run may
+# peak at: 80 % of the card's 80 GB, the margin the staging budget
+# (`codec.STAGE_BUDGET_BYTES`, half the card) is sized to keep
+PEAK_LIMIT_GB = 64.0
+# the JAX package's staging budget, under which the GF-2 scene's K=3
+# encode and rate sweep still stage "banded" at the real size
+JAX_STAGE_BUDGET_BYTES = 8 << 30
+
+
+def gaofen_run(fn):
+    """`counted_run(fn, fresh=True)` for a Gaofen-sized run, its peaks
+    allocated and reserved held to PEAK_LIMIT_GB: (result, seconds,
+    launches, peak allocated GB, peak reserved GB)."""
+    import torch
+
+    out, secs, launches, peak = counted_run(fn, fresh=True)
+    reserved = torch.cuda.max_memory_reserved() / 1e9
+    assert max(peak, reserved) <= PEAK_LIMIT_GB, (peak, reserved)
+    return out, secs, launches, peak, reserved
 
 
 # the GF-2-sized runs' epochs (the staging phase's encodes and sweep, the
@@ -1572,11 +1608,15 @@ GF2_EPOCHS = 1
 def phase_staging(profile: bool, k1, k2):
     """Training above the feature-cache budget: (a) `fit` in each forced
     mode at the bench scene against "cached"; (b) GF-2-sized encodes that
-    `pick_staging` routes to "full" (K=5) and "banded" (K=3), decoded; (c)
-    the GF-2 rate sweep, banded.  One run each."""
+    `pick_staging` routes to "full" (K=5 and K=3) at the card's budget and
+    to "banded" (K=3) at the JAX package's, decoded; (c) the GF-2 rate
+    sweep, "full" at the card's budget and "banded" at the JAX package's.
+    One run each; every GF-2 run's peaks, allocated and reserved, held to
+    PEAK_LIMIT_GB."""
     import numpy as np
     import torch
 
+    from lbdrn_msic_tpu_torch import codec
     from lbdrn_msic_tpu_torch.codec import (
         _prepare_tile, _staging_bytes, _tap_itemsize, decode_stream, encode_image,
         encode_rate_points, plan_rate_points, tile_generator)
@@ -1627,6 +1667,11 @@ def phase_staging(profile: bool, k1, k2):
     train = TrainSpec(sample_granule=8, epochs=GF2_EPOCHS)
     mx = int(big.max())
 
+    def budget(b):
+        """The card's staging budget (None), or `b` in its place."""
+        return (contextlib.nullcontext() if b is None
+                else replaced(codec, "STAGE_BUDGET_BYTES", b))
+
     def decoded(stream, K_):
         (rec, _), secs, launches, peak = counted_run(lambda: decode_stream(stream))
         assert rec.shape == big.shape and np.array_equal(rec >> K_, big >> K_), K_
@@ -1639,70 +1684,99 @@ def phase_staging(profile: bool, k1, k2):
                                       _tap_itemsize(mx >> cfg.K, False))
         return full if staging == "full" else banded
 
-    encodes, streams = [], {}
-    for K_, want in ((5, "full"), (3, "banded")):
+    # K=5 and K=3 "full" at the card's budget; K=3 "banded" at the JAX
+    # package's, the one GF-2 encode that still stages row taps
+    encodes, streams, dec = [], {}, {}
+    for K_, want, b in ((5, "full", None), (3, "full", None),
+                        (3, "banded", JAX_STAGE_BUDGET_BYTES)):
         cfg = CodecConfig(K=K_, base_codec="lpc", train=train)
-        (stream, stats), secs, launches, peak = counted_run(lambda: encode_image(big, cfg))
+        with budget(b):
+            (stream, stats), secs, launches, peak, reserved = gaofen_run(
+                lambda: encode_image(big, cfg))
         tile = stats.tiles[0]
         steps = _batch_geometry(train, H, W, want).steps
         assert tile.staging == want and steps == 7256, (K_, tile.staging, steps)
         assert launches == [train.epochs * steps, 0], (K_, launches)
-        streams[K_] = stream
-        row = {"K": K_, "staging": tile.staging, "seconds": secs, "phases": stats.phases,
-               "launches_k1": launches[0], "launches_k2": launches[1],
+        streams[(K_, want)] = stream
+        row = {"K": K_, "staging": tile.staging,
+               "budget_bytes": b or codec.STAGE_BUDGET_BYTES, "seconds": secs,
+               "phases": stats.phases, "launches_k1": launches[0], "launches_k2": launches[1],
                "staged_bytes": tile.staged_bytes, "staged_bytes_estimate": estimate(cfg, want),
-               "peak_device_gb": peak, "best_epoch": tile.best_epoch,
-               "best_mse": tile.best_mse, "bpsp": stats.bpsp,
+               "peak_device_gb": peak, "peak_reserved_gb": reserved,
+               "best_epoch": tile.best_epoch, "best_mse": tile.best_mse, "bpsp": stats.bpsp,
                "sha256": hashlib.sha256(stream).hexdigest()}
-        row.update(decoded(stream, K_))
+        dec[(K_, want)] = decoded(stream, K_)
+        row.update(dec[(K_, want)])
         encodes.append(row)
-        k1["launches_by_path"][f"gf2_encode_{want}"] = launches[0]
+        k1["launches_by_path"][f"gf2_encode_k{K_}_{want}"] = launches[0]
+    # K=3 "full" against "banded": W % 8 != 0, so the granule grids differ
+    # and the networks with them: RD-equivalent only
+    k3_full_minus_banded_db = dec[(3, "full")]["psnr_db"] - dec[(3, "banded")]["psnr_db"]
+    assert abs(k3_full_minus_banded_db) < 0.1, k3_full_minus_banded_db
     b_s = time.time() - t0
 
-    # (c) the GF-2 rate sweep: every expert's banded row taps in one group
+    # (c) the GF-2 rate sweep, one group: "full" at the card's budget, then
+    # "banded" at the JAX package's
     t0 = time.time()
     Ks = (3, 4, 5, 6)
     cfgs = [CodecConfig(K=k, base_codec="lpc", train=train) for k in Ks]
-    staging, dtypes, groups, per_expert = plan_rate_points(big, cfgs)
-    assert staging == "banded" and groups == [[0, 1, 2, 3]], (staging, groups)
-    res, secs, launches, peak = counted_run(lambda: encode_rate_points(big, cfgs))
-    assert launches == [0, train.epochs * 7256], launches
-    k2["launches_by_path"]["gf2_sweep_banded"] = launches[1]
-    points = []
-    for cfg, (stream, stats) in zip(cfgs, res):
-        assert stats.tiles[0].staging == "banded"
-        pt = {"K": cfg.K, "bpsp": stats.bpsp, "best_epoch": stats.tiles[0].best_epoch,
-              "best_mse": stats.tiles[0].best_mse, "sha256": hashlib.sha256(stream).hexdigest()}
-        pt.update(decoded(stream, cfg.K))
-        points.append(pt)
-    by_k = {p["K"]: p for p in points}
-    enc = {r["K"]: r for r in encodes}
-    # K=3: both banded, so the same network and bytes; K=5: "full" and
-    # "banded" draw different granule grids (W % 8 != 0), so RD only
-    assert res[Ks.index(3)][0] == streams[3], "sweep K=3 differs from the banded encode"
-    assert abs(by_k[5]["psnr_db"] - enc[5]["psnr_db"]) < 0.1, (by_k[5], enc[5])
-    sweep = {"Ks": list(Ks), "staging": staging,
-             "raw_dtypes": [str(d).replace("torch.", "") for d in dtypes],
-             "seconds": secs, "phases": res[0][1].phases, "launches_k1": launches[0],
-             "launches_k2": launches[1], "staged_bytes": res[0][1].tiles[0].staged_bytes,
-             "staged_bytes_estimate": sum(per_expert), "peak_device_gb": peak,
-             "k3_identical_to_banded_encode": True,
-             "k5_psnr_vs_full_encode_db": by_k[5]["psnr_db"] - enc[5]["psnr_db"],
-             "points": points}
+    sweeps = {}
+    for want, b in (("full", None), ("banded", JAX_STAGE_BUDGET_BYTES)):
+        with budget(b):
+            staging, dtypes, groups, per_expert = plan_rate_points(big, cfgs)
+            assert staging == want and groups == [[0, 1, 2, 3]], (want, staging, groups)
+            res, secs, launches, peak, reserved = gaofen_run(
+                lambda: encode_rate_points(big, cfgs))
+        assert launches == [0, train.epochs * 7256], (want, launches)
+        k2["launches_by_path"][f"gf2_sweep_{want}"] = launches[1]
+        points = []
+        for cfg, (stream, stats) in zip(cfgs, res):
+            assert stats.tiles[0].staging == want
+            pt = {"K": cfg.K, "bpsp": stats.bpsp, "best_epoch": stats.tiles[0].best_epoch,
+                  "best_mse": stats.tiles[0].best_mse,
+                  "sha256": hashlib.sha256(stream).hexdigest()}
+            same = streams.get((cfg.K, want)) == stream
+            # a point whose stream is an encode's decodes as that encode did
+            pt.update(dec[(cfg.K, want)] if same else decoded(stream, cfg.K))
+            pt[f"identical_to_{want}_encode"] = same
+            points.append(pt)
+        by_k = {p["K"]: p for p in points}
+        # K=3: the encode of the same staging, so the same network and bytes
+        assert res[Ks.index(3)][0] == streams[(3, want)], f"{want} sweep K=3 differs"
+        sweeps[want] = {
+            "Ks": list(Ks), "staging": staging, "budget_bytes": b or codec.STAGE_BUDGET_BYTES,
+            "dtypes": [str(d).replace("torch.", "") for d in dtypes],
+            "seconds": secs, "phases": res[0][1].phases, "launches_k1": launches[0],
+            "launches_k2": launches[1], "staged_bytes": res[0][1].tiles[0].staged_bytes,
+            "staged_bytes_estimate": sum(per_expert), "peak_device_gb": peak,
+            "peak_reserved_gb": reserved, f"k3_identical_to_{want}_encode": True,
+            "points": points}
+        del res
+    # K=5: "full" on both sides for the full sweep (the same bytes); the
+    # banded sweep's K=5 draws another granule grid (W % 8 != 0), RD only
+    assert sweeps["full"]["points"][Ks.index(5)]["identical_to_full_encode"]
+    d5 = sweeps["banded"]["points"][Ks.index(5)]["psnr_db"] - dec[(5, "full")]["psnr_db"]
+    assert abs(d5) < 0.1, d5
+    sweeps["banded"]["k5_psnr_vs_full_encode_db"] = d5
     c_s = time.time() - t0
     emit({"phase": "staging", "bench_forced_modes": forced,
           "gf2": {"shape": [C, H, W], "synth": "synth_scene(fast=True), seed 42",
                   "synth_s": synth_s, "epochs": train.epochs, "steps_per_epoch": 7256,
-                  "encodes": encodes, "sweep": sweep},
-          "phase_seconds": {"a_forced_modes": a_s, "b_gf2_encodes": b_s, "c_gf2_sweep": c_s,
+                  "budget_bytes": codec.STAGE_BUDGET_BYTES,
+                  "jax_budget_bytes": JAX_STAGE_BUDGET_BYTES,
+                  "peak_limit_gb": PEAK_LIMIT_GB, "encodes": encodes,
+                  "k3_full_minus_banded_psnr_db": k3_full_minus_banded_db,
+                  "sweep": sweeps["full"], "sweep_banded": sweeps["banded"]},
+          "phase_seconds": {"a_forced_modes": a_s, "b_gf2_encodes": b_s, "c_gf2_sweeps": c_s,
                             "total": time.time() - t_phase}})
 
     if profile:  # one epoch of the GF-2 fit in each mode: staging, batch assembly, K1
-        for K_, want in ((5, "full"), (3, "banded")):
+        for K_, want, b in ((5, "full", None), (3, "banded", JAX_STAGE_BUDGET_BYTES)):
             cfg = CodecConfig(K=K_, base_codec="lpc", train=TrainSpec(sample_granule=8, epochs=1))
-            secs = counted_run(lambda: encode_image(big, cfg))[1]
-            phase_profile(f"gf2 encode e=1 {want}", lambda: encode_image(big, cfg), [secs])
-    return {"big": big, "k5_full": enc[5]}
+            with budget(b):
+                secs = counted_run(lambda: encode_image(big, cfg))[1]
+                phase_profile(f"gf2 encode e=1 {want}", lambda: encode_image(big, cfg), [secs])
+    return {"big": big, "k5_full": encodes[0]}
 
 
 def phase_cli(k1, encoded, img, crop_hw=(1900, 2000)):
@@ -2163,10 +2237,12 @@ def phase_tiles(k1, gf2=None):
     their predecessor trains) and forced shut, in the order open, shut,
     shut, open: the streams byte-identical, 5120 K1 launches each, the
     decode MSB-exact; (b) GF-2 (7605x7815x4, seed 42,
-    e=GF2_EPOCHS), four "full" tiles, where a tile's upload and
-    prep is largest, with the gate open and shut in the same order: the
-    streams byte-identical, epochs x steps summed over the tiles K1
-    launches each, MSB-exact, seconds and peak device memory beside the
+    e=GF2_EPOCHS), four "cached" tiles at the card's budget (each
+    ~3803x3908 tile's f32 feature cache, 14.2 GiB by the budget's count),
+    where a tile's upload and prep is largest, with the gate open and shut
+    in the same order: the streams byte-identical, epochs x steps summed
+    over the tiles K1 launches each, MSB-exact, seconds and peak device
+    memory, allocated and reserved (held to PEAK_LIMIT_GB), beside the
     split_ratio 1 "full" K=5 encode (`gf2`: the staging phase's image and
     row, at the same epochs; else both made here)."""
     import numpy as np
@@ -2181,14 +2257,14 @@ def phase_tiles(k1, gf2=None):
     train = TrainSpec(sample_granule=8, epochs=10)
     sha = lambda b: hashlib.sha256(b).hexdigest()
 
-    def encode(img, cfg, gate_open):
+    def encode(img, cfg, gate_open, run=counted_run):
         aside = []
         with recording(codec, "_upload_tile_aside", aside):
             if gate_open:
-                out = counted_run(lambda: codec.encode_image(img, cfg))
+                out = run(lambda: codec.encode_image(img, cfg))
             else:
                 with replaced(codec, "OVERLAP_BUDGET_BYTES", 0):
-                    out = counted_run(lambda: codec.encode_image(img, cfg))
+                    out = run(lambda: codec.encode_image(img, cfg))
         assert len(aside) == (3 if gate_open else 0), (gate_open, len(aside))
         return out
 
@@ -2224,13 +2300,15 @@ def phase_tiles(k1, gf2=None):
     if gf2 is None:
         big = synth_scene(7605, 7815, channels=4, effective_bits=12, seed=42, fast=True)
         cfg1 = CodecConfig(K=5, base_codec="lpc", train=train_b)
-        (_, st1), secs1, _, peak1 = counted_run(lambda: codec.encode_image(big, cfg1))
-        sr1 = {"seconds": secs1, "peak_device_gb": peak1, "staging": st1.tiles[0].staging,
+        (_, st1), secs1, _, peak1, res1 = gaofen_run(lambda: codec.encode_image(big, cfg1))
+        sr1 = {"seconds": secs1, "peak_device_gb": peak1, "peak_reserved_gb": res1,
+               "staging": st1.tiles[0].staging,
                "epochs": train_b.epochs, "source": "encoded in this phase"}
     else:
         big = gf2["big"]
         sr1 = {"seconds": gf2["k5_full"]["seconds"],
                "peak_device_gb": gf2["k5_full"]["peak_device_gb"],
+               "peak_reserved_gb": gf2["k5_full"]["peak_reserved_gb"],
                "staging": gf2["k5_full"]["staging"], "epochs": GF2_EPOCHS,
                "source": "the staging phase's (b)"}
     cfg = CodecConfig(K=5, split_ratio=2, base_codec="lpc", train=train_b)
@@ -2238,13 +2316,15 @@ def phase_tiles(k1, gf2=None):
     n_b = encode_launches(big, cfg)
     runs_b, first = {True: [], False: []}, None
     for gate_open in (True, False, False, True):
-        (stream, stats), secs, launches, peak = encode(big, cfg, gate_open)
+        (stream, stats), secs, launches, peak, reserved = encode(big, cfg, gate_open,
+                                                                 gaofen_run)
         assert launches == [n_b, 0], (gate_open, launches, n_b)
-        assert [t.staging for t in stats.tiles] == tile_stagings(big, cfg) == ["full"] * 4, \
+        assert [t.staging for t in stats.tiles] == tile_stagings(big, cfg) == ["cached"] * 4, \
             stats.tiles
         first = stream if first is None else first
         assert stream == first, f"gate {'open' if gate_open else 'shut'} gave another stream"
         runs_b[gate_open].append({"seconds": secs, "peak_device_gb": peak,
+                                  "peak_reserved_gb": reserved,
                                   "phases": stats.phases,
                                   "tile_train_s": [t.train_time for t in stats.tiles]})
     (rec, _), dec_s, dl, dec_peak = counted_run(lambda: codec.decode_stream(first))
@@ -2271,19 +2351,30 @@ def phase_tiles(k1, gf2=None):
 FLAGSHIP_SCENES = ("GF2_D", "WFI_A", "PMS_A")
 FLAGSHIP_KS = (3, 4, 5, 6)
 FLAGSHIP_EPOCHS = 1
+# the experts of each chunk `encode_dataset` trains a scene in at K 3..6:
+# its bucket's "full" tap matrices (GiB at K 3, 4, 5, 6: GF-2 11.72,
+# 11.72, 5.86, 5.86; WFI 14.06, 14.06, 7.03, 7.03; PMS 7.03, 7.03, 3.52,
+# 3.52) and its image and label store (0.94, 1.13, 0.56) packed within
+# the card's staging budget
+FLAGSHIP_CHUNKS = {"GF2_D": [4], "WFI_A": [3, 1], "PMS_A": [4]}
 
 
-def phase_flagship(k1, k2):
+def phase_flagship(k1, k2, gf2=None):
     """The flagship workload's composition on one scene of each group at
     its real shape (`scripts.flagship_workload.run`: bucketed dataset
     encode, pipelined decode, summarize, Baseline, BD table), with the
-    counts zeroed before it: every stream MSB-lossless; K2 launched
-    epochs x steps per chunk, summed over the chunks (K1 never); each
+    counts zeroed before it: every stream MSB-lossless; each scene's
+    chunks FLAGSHIP_CHUNKS and its encode's peaks, allocated and reserved,
+    within PEAK_LIMIT_GB; K2 launched epochs x steps per chunk, summed over
+    the chunks (K1 never); each
     scene's K=5 stream byte-identical to `encode_image(bucket=True)`'s
     (else within 0.1 dB); those three streams' pipelined decode bit for
     bit `decode_stream`; in every group BD-PSNR > 0 and BD-Rate < 0
     against Baseline.  Works in a temporary directory (about 1.1 GB of
-    TIFFs), removed after."""
+    TIFFs), removed after.  With `gf2` (the staging phase's result) GF2_D
+    is the staging phase's GF-2 scene (its shape; seed 42), written as
+    GF2_D's TIFF before the run, which then reads it instead of making
+    the scene a second time."""
     import tempfile
 
     import numpy as np
@@ -2300,6 +2391,13 @@ def phase_flagship(k1, k2):
     train = TrainSpec(sample_granule=8, epochs=FLAGSHIP_EPOCHS)
     tmp = tempfile.mkdtemp(prefix="flagship_")
     try:
+        gf2_d = "synth_scene(seed=scene_seed('GF2_D'))"
+        if gf2 is not None:
+            from lbdrn_msic_tpu_torch.io.tiff import write_tiff
+
+            os.makedirs(os.path.join(tmp, "data"))
+            write_tiff(os.path.join(tmp, "data", "GF2_D.tif"), gf2["big"])
+            gf2_d = "the staging phase's GF-2 scene (seed 42)"
         with recording(codec, "fit_rate_experts", []) as calls:
             r, secs, launches, peak = counted_run(
                 lambda: fw.run(scenes, ks, FLAGSHIP_EPOCHS, tmp))
@@ -2309,6 +2407,14 @@ def phase_flagship(k1, k2):
         want = 0
         plans = r["plans"]
         assert set(plans) == set(FLAGSHIP_SCENES), plans
+        chunk_experts = {stem: [len(c) for c in p["chunks"]] for stem, p in plans.items()}
+        assert chunk_experts == FLAGSHIP_CHUNKS, chunk_experts
+        for stem, plan in plans.items():
+            assert plan["budget"] == codec.STAGE_BUDGET_BYTES, (stem, plan["budget"])
+            plan.update(peak_device_gb=r["scene_peaks"][stem]["allocated_gb"],
+                        peak_reserved_gb=r["scene_peaks"][stem]["reserved_gb"])
+            assert max(plan["peak_device_gb"], plan["peak_reserved_gb"]) <= PEAK_LIMIT_GB, \
+                (stem, plan)
         for stem, plan in plans.items():
             steps = _batch_geometry(train, *plan["bucket"], plan["staging"]).steps
             want += len(plan["chunks"]) * train.epochs * steps
@@ -2328,7 +2434,7 @@ def phase_flagship(k1, k2):
             img = r["imgs"][stem]
             with open(bins[(stem, 5)], "rb") as f:
                 got = f.read()
-            (ref, st), ref_s, ref_launches, ref_peak = counted_run(
+            (ref, st), ref_s, ref_launches, ref_peak, ref_reserved = gaofen_run(
                 lambda: codec.encode_image(img, cfg5, bucket=True))
             Hb, Wb = codec.bucket_dims(H, W, cfg5.features.D)
             want_k1 = train.epochs * _batch_geometry(train, Hb, Wb, st.tiles[0].staging).steps
@@ -2345,6 +2451,7 @@ def phase_flagship(k1, k2):
                        "encode_image_staging": st.tiles[0].staging,
                        "dataset_staging": plans[stem]["staging"],
                        "encode_image_s": ref_s, "encode_image_peak_device_gb": ref_peak,
+                       "encode_image_peak_reserved_gb": ref_reserved,
                        "encode_image_launches_k1": ref_launches[0]})
             k5_streams.append(got)
         k1["launches_by_path"]["flagship_encode_image_k5"] = n_k1
@@ -2357,10 +2464,11 @@ def phase_flagship(k1, k2):
             raw_lines = f.read().splitlines()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    emit({"phase": "flagship", "scenes": [list(s) for s in scenes], "Ks": ks,
+    emit({"phase": "flagship", "scenes": [list(s) for s in scenes], "gf2_d_image": gf2_d,
+          "Ks": ks,
           "epochs": FLAGSHIP_EPOCHS, "seconds": secs, "peak_device_gb": peak,
           "launches_k1": launches[0], "launches_k2": launches[1],
-          "chunk_experts": {stem: [len(c) for c in p["chunks"]] for stem, p in plans.items()},
+          "chunk_experts": chunk_experts,
           "plans": plans, "groups": r["groups"],
           "msb_lossless": f"{r['n_lossless']}/{r['n_jobs']}",
           "encode_s": r["encode_s"], "encode_mpx_s": r["encode_mpx_s"],
@@ -2743,8 +2851,8 @@ def main():
                     default=None,
                     help="kernels: the kernel phases only; cli: the encode, decode "
                          "and rd phases and the cli phase only; dataset: the dataset "
-                         "and sweep_cli phases only; flagship: the tiles and flagship "
-                         "phases only; validation: the multi_k and validation phases "
+                         "and sweep_cli phases only; flagship: the staging, tiles and "
+                         "flagship phases only; validation: the multi_k and validation phases "
                          "only; mesh: the mesh phase only; bench: the bench phase "
                          "only (none of the last six prints the kernels line)")
     # one rank of the mesh phase's world (the script starts them itself)
@@ -2828,8 +2936,9 @@ def main():
     if args.only in ("flagship", "validation"):
         k1, k2 = {"launches_by_path": {}}, {"launches_by_path": {}}
         if args.only == "flagship":
-            phase_tiles(k1)
-            phase_flagship(k1, k2)
+            gf2 = phase_staging(args.profile, k1, k2)
+            phase_tiles(k1, gf2)
+            phase_flagship(k1, k2, gf2)
         else:
             phase_validation(k1, k2, phase_multi_k(card, args.profile, {}, {}))
         emit({"k1_launches_by_path": k1["launches_by_path"],
@@ -2848,12 +2957,12 @@ def main():
         multik = phase_multi_k(card, args.profile, k3, k4)
         gf2 = phase_staging(args.profile, k1, k2)
         phase_tiles(k1, gf2)
-        del gf2
         from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
         phase_cli(k1, encoded, synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42))
         phase_sweep_cli(k1, k2, phase_dataset(args.profile, k1, k2, sweep_solos))
-        phase_flagship(k1, k2)
+        phase_flagship(k1, k2, gf2)
+        del gf2
         phase_validation(k1, k2, multik)
         phase_mesh(card, k2, sweep_streams, encoded)
     emit({"phase": "total", "script_seconds": time.time() - t_script})

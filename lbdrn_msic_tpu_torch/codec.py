@@ -108,22 +108,16 @@ class DecodeStats:
     phases: Optional[dict] = None
 
 
-# Staging budget per tile, kept at the JAX package's value so `pick_staging`
-# decides as it does (re-deriving it for an 80 GB card is ROADMAP work).
-STAGE_BUDGET_BYTES = 8 << 30
-# The dataset encode's three TPU fences, carried over unchanged so that the
-# port's chunk plan is the JAX package's (ROADMAP queue item 1 lists their
-# removal with the 80 GB re-derivation of STAGE_BUDGET_BYTES).  In the port
-# chunking never changes a stream's bytes (K2's expert e is K1, bit for
-# bit), so each fence is a question of device memory and speed only:
-# - SERIAL_SCENE_BYTES: scenes whose image + label store exceed it train one
-#   expert a chunk (JAX: a v5e codegen fault with >= 2 distinct experts at
-#   Gaofen-bucket shapes) and, in JAX, one chunk on the device at a time.
-#   Every port fit ends on its last eval's sync, so chunks never queue on
-#   the card together here; the one-expert cap is what remains of it;
-# - the halved budget of a group that needs several chunks (two chunks in
-#   flight in JAX), in `_plan_group`.
-SERIAL_SCENE_BYTES = 256 << 20
+# Staging budget per tile, and per chunk of an expert group: half the
+# card (NVIDIA H100 80GB HBM3, 700.00 W).  Above its staged bytes a
+# Gaofen-sized fit measured +3.5 to +6.8 GB of image, labels, batches,
+# activations and allocator slack, so a fit staging up to this budget
+# should peak near 50 GB, inside 64 GB (80 % of the card).  Measured at
+# this budget (chip_smoke.py staging and flagship lines): the GF-2 "full"
+# rate sweep (33.2 GiB of taps) peaks at 39.5 GB allocated, 41.0 GB
+# reserved; the flagship's GF-2 and WFI chunks (~36 GiB each) at
+# 42.3-42.4 GB allocated, 45.4-46.9 GB reserved.
+STAGE_BUDGET_BYTES = 40 << 30
 
 
 def _cached_bytes(H: int, W: int, C: int, fspec, g: int) -> int:
@@ -195,9 +189,8 @@ def pick_staging(H, W, C, max_msb, fspec, tspec, warn=True):
 
 
 # Two tiles' staging and images stay below this for `encode_image` to
-# double-buffer them: the JAX package's bound (its card has 16 GB);
-# re-deriving it for 80 GB goes with STAGE_BUDGET_BYTES.
-OVERLAP_BUDGET_BYTES = 12 << 30
+# double-buffer them: together they stay within what one tile may stage.
+OVERLAP_BUDGET_BYTES = STAGE_BUDGET_BYTES
 
 
 def tiles_overlap(shape, max_value: int, itemsize: int, cfg: CodecConfig) -> bool:
@@ -633,10 +626,9 @@ def plan_rate_points(img: np.ndarray, cfgs: List[CodecConfig]):
     alone (dtypes: the tap matrices'), else "banded" when its row taps do
     (the raw row taps'), else "gather", which the sweep leaves to
     `encode_image` one config at a time; experts are chunked into groups
-    whose staged bytes fit the budget together.  Apart from `_plan_group`,
-    as in the JAX package: the dataset plan's TPU fences (the halved budget,
-    one expert a chunk above SERIAL_SCENE_BYTES) never applied to a sweep,
-    and would split the GF-2 sweep into four one-expert fits."""
+    whose staged bytes fit the budget together.  The same packing as
+    `_plan_group`'s, without its fixed image bytes: the JAX package's rule
+    at the card's budget."""
     C, H, W = img.shape
     fspec = cfgs[0].features
     g = cfgs[0].train.sample_granule
@@ -937,8 +929,8 @@ class GroupPlan:
     """How `_encode_job_group` trains one group: the shape every expert
     trains at (a bucket's with `bucket`), the real (height, width) per
     unique image, the staging mode, each expert's tap dtype and staged
-    bytes, the budget after the halving rule, and the chunks (lists of
-    expert indices)."""
+    bytes, the budget every chunk's staging and images fit, and the chunks
+    (lists of expert indices)."""
 
     H: int
     W: int
@@ -952,13 +944,17 @@ class GroupPlan:
 
 def _plan_group(uniq: List[np.ndarray], ijobs: List[tuple], bucket: bool,
                 max_experts: int) -> Optional[GroupPlan]:
-    """The JAX package's plan for one expert group (its codec.py
-    `_encode_job_group`): "full" tap staging when every expert's tap matrix
-    fits the budget alone, else "banded", else None (the group is encoded
-    job by job); the budget halves when the group's staging and images
-    exceed it (several chunks); scenes above SERIAL_SCENE_BYTES take one
-    expert a chunk; chunks pack whole images' experts, an image whose
-    experts overflow the budget split by it."""
+    """The plan for one expert group: the JAX package's rule (its codec.py
+    `_encode_job_group`) at the card's budget, without its two TPU fences
+    (a halved budget for a group of several chunks, one expert a chunk for
+    Gaofen-sized scenes).  "full" tap staging when every expert's tap
+    matrix fits the budget alone, else "banded", else None (the group is
+    encoded job by job); chunks pack whole images' experts, up to
+    `max_experts` and within the budget with each image's uint16 image and
+    label store, and an image whose experts overflow the budget splits by
+    it.  The chunks train one after another (each fit ends on its last
+    eval's sync), so each may take the whole budget; chunking never
+    changes a stream's bytes."""
     C, H, W = uniq[0].shape
     cfg0 = ijobs[0][1]
     fspec = cfg0.features
@@ -982,10 +978,6 @@ def _plan_group(uniq: List[np.ndarray], ijobs: List[tuple], bucket: bool,
     else:
         return None
     per_image_fixed = 4 * H * W * C  # uint16 image + label store
-    if sum(per_expert) + len(uniq) * per_image_fixed > budget:
-        budget //= 2
-    if per_image_fixed > SERIAL_SCENE_BYTES:
-        max_experts = 1
     # pack whole images (their experts stay adjacent); an image whose own
     # experts overflow splits by budget
     by_img: dict = {}
@@ -1201,7 +1193,8 @@ def decode_stream(data: bytes, device=None, mesh=None) -> tuple[np.ndarray, Deco
 
 
 # decode-ahead budget: decoded bases and outputs of the streams dispatched
-# beyond the one being finalized (`decode_pipelined_iter`)
+# beyond the one being finalized (`decode_pipelined_iter`); host bytes,
+# not the card's
 DECODE_AHEAD_BYTES = 6 << 30
 
 

@@ -98,7 +98,9 @@ def run(scenes, ks, epochs, workdir, device=None, granule=8, base_codec="lpc"):
     means CUDA.  Returns a dict of what it measured: the images, the
     bitstream paths, MSB-lossless count, per-group staging / chunk plans /
     seconds a job, each encoded scene's group plan as `encode_dataset`
-    ran it, the CSVs, the BD report per group, the table."""
+    ran it and (on CUDA) its encode's peak device memory, allocated and
+    reserved (`scene_peaks`), the CSVs, the BD report per group, the
+    table."""
     from lbdrn_msic_tpu_torch import codec, resolve_device
     from lbdrn_msic_tpu_torch.cli.encode import write_encode_outputs
     from lbdrn_msic_tpu_torch.cli.summarize import summarize
@@ -160,19 +162,18 @@ def run(scenes, ks, epochs, workdir, device=None, granule=8, base_codec="lpc"):
 
     # --- phase 2: dataset encode, one resumable scene at a time ---------
     # Per-scene encode_dataset + immediate bin writes: at flagship scale
-    # the cross-image grouping degenerates to per-image chunks anyway
-    # (codec.SERIAL_SCENE_BYTES cap), and a killed run resumes at the next
-    # scene.
+    # one scene's K points already fill the staging budget (chunks of
+    # 2-6 experts of one image, codec._plan_group), and a killed run
+    # resumes at the next scene.
     groups = scene_groups([s for s, _, _, _ in scenes])
     group_of = {scenes[i][0]: g for g, idx in groups.items() for i in idx}
     per_group = {g: {"staging": set(), "chunks": [], "seconds": 0.0, "jobs": 0}
                  for g in groups}
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
     bl = BuildLog()
     bl.__enter__()
     bins = []
     plans = {}  # stem -> the plan of its expert group, where it had one
+    peaks = {}  # stem -> its encode's peak device GB, allocated and reserved
     t_enc = 0.0
     enc_px = enc_spx = 0
     for stem, c, h, w in scenes:
@@ -190,9 +191,15 @@ def run(scenes, ks, epochs, workdir, device=None, granule=8, base_codec="lpc"):
         sjobs = [
             (imgs[stem], dataclasses.replace(base_cfg, K=K)) for K in ks
         ]
+        if cuda:  # each scene's peaks its own: the last scene's blocks go back
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.time()
         results = codec.encode_dataset(sjobs, bucket=True, device=device)
         dt = time.time() - t0
+        if cuda:
+            peaks[stem] = {"allocated_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+                           "reserved_gb": torch.cuda.max_memory_reserved(device) / 1e9}
         # the chunk plan the scene's group ran (a single rate point goes
         # the pipelined way, one fit a job)
         plan = results[0][1].plan
@@ -222,7 +229,9 @@ def run(scenes, ks, epochs, workdir, device=None, granule=8, base_codec="lpc"):
         log(f"[encode] {stem}: {dt:.1f}s = "
             f"{h * w * len(ks) / 1e6 / dt:.2f} Mpx/s "
             f"({dt / len(ks):.2f} s/job, staging {'/'.join(staging)}, "
-            f"{len(chunks)} chunks of E={chunks})")
+            f"{len(chunks)} chunks of E={chunks}"
+            + (f", peak {peaks[stem]['allocated_gb']:.2f} GB allocated, "
+               f"{peaks[stem]['reserved_gb']:.2f} reserved)" if cuda else ")"))
         bins += scene_bins
     if t_enc:
         log(f"[encode] encoded-scene total {t_enc:.1f}s = "
@@ -233,9 +242,10 @@ def run(scenes, ks, epochs, workdir, device=None, granule=8, base_codec="lpc"):
             log(f"[encode] group {name}: staging {'/'.join(sorted(g['staging']))}, "
                 f"{sum(len(ch) for ch in g['chunks'])} chunks, "
                 f"{g['seconds'] / g['jobs']:.2f} s/job")
-    peak_enc = torch.cuda.max_memory_allocated(device) / 1e9 if cuda else None
+    peak_enc = max((p["allocated_gb"] for p in peaks.values()), default=None)
     if cuda:
-        log(f"[encode] peak device memory {peak_enc:.2f} GB")
+        if peaks:
+            log(f"[encode] peak device memory {peak_enc:.2f} GB")
         torch.cuda.reset_peak_memory_stats(device)
 
     # --- phase 3: pipelined decode with MSB verification -----------------
@@ -339,7 +349,7 @@ def run(scenes, ks, epochs, workdir, device=None, granule=8, base_codec="lpc"):
                           "seconds": g["seconds"], "jobs": g["jobs"],
                           "seconds_per_job": g["seconds"] / g["jobs"] if g["jobs"] else None}
                    for name, g in per_group.items()},
-        "plans": plans,
+        "plans": plans, "scene_peaks": peaks,
         "encode_s": t_enc, "encode_mpx_s": enc_px / 1e6 / t_enc if t_enc else None,
         "decode_s": t_dec, "decode_mpx_s": total_px / 1e6 / t_dec,
         "peak_encode_gb": peak_enc, "peak_decode_gb": peak_dec,

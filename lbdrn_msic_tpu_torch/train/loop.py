@@ -81,6 +81,7 @@ from lbdrn_msic_tpu_torch.ops.fused_step import (
 from lbdrn_msic_tpu_torch.parallel.distributed import collect
 
 # the staged batches of one multi-step chunk stay under this many bytes
+# (the opt-in `multi_k` path only, which no codec entry point sets)
 MULTI_STEP_BYTES = 512 << 20
 
 

@@ -87,9 +87,13 @@ def test_port_streams_deterministic(scene):
     assert c != a
 
 
-def test_pick_staging_rule():
+def test_pick_staging_rule(monkeypatch):
+    """The port's rule is the JAX package's: at the JAX package's budget
+    it picks what JAX picks (the card's own budget is larger)."""
     fs, ts = FeatureSpec(), TrainSpec(sample_granule=8)
     jfs, jts = JFeatureSpec(), JTrainSpec(sample_granule=8)
+    assert codec.pick_staging(2048, 2048, 4, 127, fs, ts) == ("cached", torch.float32)
+    monkeypatch.setattr(codec, "STAGE_BUDGET_BYTES", jcodec.STAGE_BUDGET_BYTES)
     for H, W, C in ((2048, 2048, 4), (4096, 4096, 4), (6000, 6000, 8), (20000, 20000, 8)):
         with warnings.catch_warnings():  # 20000^2 x 8 falls back to gathers
             warnings.simplefilter("ignore", RuntimeWarning)

@@ -217,10 +217,12 @@ def test_coords_fit_staging_rule():
     assert torch.equal(a.step_losses, b.step_losses) and a.best_mse == b.best_mse
 
 
-def test_pick_staging_coords_tie_matches_jax():
-    """At 2048^2 x 4 with coordinates + embedding and g = 8 the f32 cache
-    with its grouped copy is exactly 8 GiB, the budget: "cached" in both
-    packages (the `<=` rule).  Coordinates only above the budget: "gather"."""
+def test_pick_staging_coords_tie_matches_jax(monkeypatch):
+    """At the JAX package's budget, 2048^2 x 4 with coordinates + embedding
+    and g = 8 has an f32 cache with its grouped copy of exactly 8 GiB, the
+    budget: "cached" in both packages (the `<=` rule).  Coordinates only
+    above the budget: "gather"."""
+    monkeypatch.setattr(codec, "STAGE_BUDGET_BYTES", jcodec.STAGE_BUDGET_BYTES)
     fs, jfs = FeatureSpec(use_coords=True, embedding=True), JFeatureSpec(use_coords=True,
                                                                          embedding=True)
     ts, jts = TrainSpec(sample_granule=8), JTrainSpec(sample_granule=8)

@@ -272,16 +272,22 @@ def test_dataset_groups_fallbacks_and_order(monkeypatch):
 
 
 def test_dataset_chunking_matches_jax_plan(monkeypatch):
-    """A budget that cannot hold the group (tests/test_e2e.py:494): the
-    budget halves and the group splits into chunks; the chunk plan (each
-    chunk's images and Ks) is the JAX package's, and the streams are the
-    unchunked ones byte for byte."""
+    """A budget that holds the group in one chunk, where neither of the
+    JAX package's TPU fences fires: the chunk plan (each chunk's images and
+    Ks) is the JAX package's.  A budget that cannot hold the group
+    (tests/test_e2e.py:494): the port's own plan, written out here, keeps
+    the budget whole (the JAX package halves it) and packs each image's two
+    experts in a chunk within it; the streams are the unchunked ones byte
+    for byte."""
     imgs = _scenes((80, 81))
     jobs = [(im, _cfg(K)) for im in imgs for K in (3, 4)]
+    ijobs = [(i, c) for i in range(2) for c in (_cfg(3), _cfg(4))]
     whole = codec.encode_dataset(jobs, device="cpu")
     one_expert_full = 48 * 40 * C * 25 * 2  # int16 taps
+    fixed = 4 * 48 * 40 * C  # one image's uint16 image + label store
+    one_chunk = 4 * one_expert_full + 2 * fixed
     for mod in (codec, jcodec):
-        monkeypatch.setattr(mod, "STAGE_BUDGET_BYTES", 3 * one_expert_full)
+        monkeypatch.setattr(mod, "STAGE_BUDGET_BYTES", one_chunk)
 
     jchunks = []
 
@@ -297,15 +303,28 @@ def test_dataset_chunking_matches_jax_plan(monkeypatch):
     jcodec.encode_dataset([(im, _jcfg(c.K)) for im, c in jobs])
     chunks = []
     _record(monkeypatch, codec, "fit_rate_experts", chunks)
+    one = codec.encode_dataset(jobs, device="cpu")
+    got = [(tuple(a[1]), tuple(k["img_of"]), len(a[0])) for a, k in chunks]
+    assert got == jchunks == [((3, 4, 3, 4), (0, 0, 1, 1), 2)], (got, jchunks)
+    assert codec._plan_group(imgs, ijobs, False, 16).budget == one_chunk
+
+    # one byte short of the whole group: two chunks, one image each
+    budget = one_chunk - 1
+    monkeypatch.setattr(codec, "STAGE_BUDGET_BYTES", budget)
+    chunks.clear()
     chunked = codec.encode_dataset(jobs, device="cpu")
     got = [(tuple(a[1]), tuple(k["img_of"]), len(a[0])) for a, k in chunks]
-    assert got == jchunks and len(got) > 1, (got, jchunks)
-    plan = codec._plan_group(imgs, [(i, c) for i in range(2) for c in (_cfg(3), _cfg(4))],
-                             False, 16)
-    assert plan.budget == 3 * one_expert_full // 2 and plan.staging == "full"
+    assert got == [((3, 4), (0, 0), 1), ((3, 4), (0, 0), 1)], got
+    plan = codec._plan_group(imgs, ijobs, False, 16)
+    assert plan.budget == budget and plan.staging == "full"
+    assert plan.chunks == [[0, 1], [2, 3]]
+    assert plan.per_expert == [one_expert_full] * 4
+    for ch in plan.chunks:
+        n_imgs = len({ijobs[e][0] for e in ch})
+        assert sum(plan.per_expert[e] for e in ch) + n_imgs * fixed <= budget
     # every job's stats carry the plan its group ran
-    assert all(st.plan == plan for _, st in chunked) and len(plan.chunks) == len(got)
-    assert [s for s, _ in chunked] == [s for s, _ in whole]
+    assert all(st.plan == plan for _, st in chunked)
+    assert [s for s, _ in chunked] == [s for s, _ in one] == [s for s, _ in whole]
 
 
 def test_dataset_seed_contract_singletons():

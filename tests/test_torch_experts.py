@@ -287,10 +287,11 @@ def test_rate_point_streams_cross_decode(scene):
         assert abs(psnr(scene, own) - psnr(scene, theirs)) < 0.1
 
 
-def test_plan_rate_points_matches_jax_rule():
-    """The bench sweep (2048^2 x 4, 12-bit, K 3..6) stages full tap
-    matrices, int16 for K = 3, 4 and int8 for K = 5, 6, in one group; the
-    byte counts are the JAX package's."""
+def test_plan_rate_points_matches_jax_rule(monkeypatch):
+    """At the JAX package's budget, the bench sweep (2048^2 x 4, 12-bit,
+    K 3..6) stages full tap matrices, int16 for K = 3, 4 and int8 for
+    K = 5, 6, in one group; the byte counts are the JAX package's."""
+    monkeypatch.setattr(codec, "STAGE_BUDGET_BYTES", jcodec.STAGE_BUDGET_BYTES)
     H = W = 2048
     img = np.zeros((4, H, W), np.uint16)
     img[0, 0, 0] = 4095

@@ -69,6 +69,7 @@ PORT_MODULES = [
     "lbdrn_msic_tpu_torch.scripts.repro_all",
     "lbdrn_msic_tpu_torch.scripts.bench",
     "lbdrn_msic_tpu_torch.profiling.multik_ab",
+    "lbdrn_msic_tpu_torch.profiling.budget_ab",
     "lbdrn_msic_tpu_torch.parallel",
     "lbdrn_msic_tpu_torch.parallel.distributed",
     "lbdrn_msic_tpu_torch.parallel.shard",

@@ -274,11 +274,15 @@ PICK_SHAPES = [(2048, 2048, 4), (4096, 4096, 4), (7605, 7815, 4), (7340, 7815, 4
 
 
 @pytest.mark.parametrize("K_", [3, 4, 5, 6])
-def test_pick_staging_matches_jax(K_):
-    """Mode and dtype of `pick_staging` equal the JAX package's on the
-    reference shapes at 12 bits (the port holds JAX's uint16 as int16), and
-    the gather fallback warns in both."""
+def test_pick_staging_matches_jax(K_, monkeypatch):
+    """At the JAX package's budget, mode and dtype of `pick_staging` equal
+    the JAX package's on the reference shapes at 12 bits (the port holds
+    JAX's uint16 as int16), and the gather fallback warns in both.  GF-2
+    stages "full" at every K at the card's budget, and "banded" below K=5
+    at the JAX package's."""
     ts, jts = TrainSpec(sample_granule=8), JTrainSpec(sample_granule=8)
+    assert codec.pick_staging(7605, 7815, 4, 4095 >> K_, FeatureSpec(), ts)[0] == "full"
+    monkeypatch.setattr(codec, "STAGE_BUDGET_BYTES", jcodec.STAGE_BUDGET_BYTES)
     as_port = {"float32": torch.float32, "int8": torch.int8, "int16": torch.int16,
                "uint8": torch.uint8, "uint16": torch.int16}
     for H, W, C in PICK_SHAPES:

@@ -53,7 +53,11 @@ def _jax_gate(C, H, W, sr, g, K, relative, max_value=4095, itemsize=2):
 
 
 @pytest.mark.parametrize("K", [1, 3, 5])
-def test_overlap_gate_matches_jax(K):
+def test_overlap_gate_matches_jax(K, monkeypatch):
+    """At the JAX package's staging budget and overlap bound (12 GiB), the
+    port's gate is the JAX package's on every case."""
+    monkeypatch.setattr(codec, "STAGE_BUDGET_BYTES", jcodec.STAGE_BUDGET_BYTES)
+    monkeypatch.setattr(codec, "OVERLAP_BUDGET_BYTES", 12 << 30)
     opened = set()
     for C, H, W, sr, g in GATE_CASES:
         for relative in (True, False):
