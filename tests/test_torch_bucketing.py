@@ -7,6 +7,8 @@ tests/test_torch_staging.py), the bucketed eval's normalizer, and
 identity on aligned shapes, and a warned no-op with coordinates (the
 counterparts of tests/test_bucketing.py:189-250)."""
 
+import os
+import sys
 import warnings
 
 import jax
@@ -30,6 +32,11 @@ from lbdrn_msic_tpu_torch.features import engine
 from lbdrn_msic_tpu_torch.models.siren import forward, params_from_numpy
 from lbdrn_msic_tpu_torch.train import loop
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 K = 5
 # the bench scene, small tiles, edges of both quanta, the reference scenes

@@ -26,6 +26,11 @@ from lbdrn_msic_tpu_torch.io.tiff import read_tiff, write_tiff
 from lbdrn_msic_tpu_torch.utils.logging import scrape_log
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
+
 DATA = os.path.join(os.path.dirname(__file__), "data")
 HAVE_CV2 = importlib.util.find_spec("cv2") is not None  # the jp2 base codec
 FAST = ["-e", "2", "-bs", "2048", "--base-codec", "lpc", "--device", "cpu"]

@@ -2,7 +2,9 @@
 cross-decode both ways, port streams deterministic."""
 
 import dataclasses
+import os
 import struct
+import sys
 import warnings
 
 import numpy as np
@@ -20,6 +22,11 @@ from lbdrn_msic_tpu_torch.core.config import CodecConfig, FeatureSpec, ModelSpec
 from lbdrn_msic_tpu_torch.eval.metrics import psnr
 from lbdrn_msic_tpu_torch.io import header
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 K = 5
 

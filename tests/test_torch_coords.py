@@ -17,6 +17,9 @@ Tolerances:
   of the samples (the parity contract of tests/test_torch_experts.py).
 """
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +44,11 @@ from lbdrn_msic_tpu_torch.features import engine
 from lbdrn_msic_tpu_torch.models.siren import params_from_numpy
 from lbdrn_msic_tpu_torch.train import loop
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 K = 5
 EMB_ATOL = 1e-6

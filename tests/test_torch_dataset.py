@@ -17,6 +17,8 @@ Tolerances:
   of the samples.
 """
 
+import os
+import sys
 import types
 
 import jax
@@ -44,6 +46,11 @@ from lbdrn_msic_tpu_torch.models.siren import params_from_numpy, unstack_params
 from lbdrn_msic_tpu_torch.ops import fused_step as fs
 from lbdrn_msic_tpu_torch.train import loop
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 C = 2
 FAST = dict(epochs=2, batch_size=1024)

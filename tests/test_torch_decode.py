@@ -1,6 +1,9 @@
 """Port decode path vs the JAX package's: bitplanes, band halos, banded
 residual dispatch and host assembly."""
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,11 @@ from lbdrn_msic_tpu.models.siren import init_params as jinit
 from lbdrn_msic_tpu_torch.core.config import FeatureSpec, ModelSpec
 from lbdrn_msic_tpu_torch.decode import reconstruct as rec
 from lbdrn_msic_tpu_torch.models.siren import params_from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 
 @pytest.mark.parametrize("n", [64, 61, 8 * 37 + 3])

@@ -10,6 +10,7 @@ committed validation/*.csv and seeded synthetic scenes.
 import glob
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -19,6 +20,11 @@ from lbdrn_msic_tpu.eval import metrics as jmetrics
 from lbdrn_msic_tpu.eval import reports as jreports
 from lbdrn_msic_tpu_torch.eval import anchors, metrics, reports
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 VAL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "validation")
 ANCHOR_CSVS = {m: os.path.join(VAL, f"{m}_6rps.csv")

@@ -7,6 +7,7 @@ directories aside).  Host work only: none of the three touches a device.
 import contextlib
 import io
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -19,6 +20,11 @@ from lbdrn_msic_tpu_torch.cli import report as report_cli
 from lbdrn_msic_tpu_torch.cli import visualize as visualize_cli
 from lbdrn_msic_tpu_torch.io.tiff import write_tiff
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 VAL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "validation")
 

@@ -10,6 +10,9 @@ Tolerances:
 - within the port, streams are byte-identical to `encode_image`'s.
 """
 
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +37,11 @@ from lbdrn_msic_tpu_torch.models.siren import params_from_numpy, unstack_params
 from lbdrn_msic_tpu_torch.ops import fused_step as fs
 from lbdrn_msic_tpu_torch.train import loop
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 E = 3
 

@@ -33,7 +33,10 @@ from lbdrn_msic_tpu_torch.core.config import CodecConfig, FeatureSpec, ModelSpec
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
 from torch_mesh_worker import MSPEC_KW, spawn_world  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 K = 5
 H, W, C = 48, 40, 2

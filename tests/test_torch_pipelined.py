@@ -9,6 +9,9 @@ the packages, MSBs exact and residuals within +-1 on at most 0.1 % of the
 samples (CPU `sin` of the two libraries differs in the last bit).
 """
 
+import os
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -26,6 +29,11 @@ from lbdrn_msic_tpu_torch.decode import reconstruct as rec
 from lbdrn_msic_tpu_torch.io.header import decode_header, header_size
 from lbdrn_msic_tpu_torch.models.siren import params_from_numpy
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 CPU = torch.device("cpu")
 

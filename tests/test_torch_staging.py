@@ -11,6 +11,8 @@ Tolerances:
   banded sweep's expert bit for bit the banded `fit` at its K.
 """
 
+import os
+import sys
 import warnings
 
 import jax
@@ -33,6 +35,11 @@ from lbdrn_msic_tpu_torch.features import engine
 from lbdrn_msic_tpu_torch.models.siren import params_from_numpy
 from lbdrn_msic_tpu_torch.train import loop
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 K = 5
 SHAPES = [(24, 37), (32, 40)]  # W % 8 != 0 and == 0

@@ -9,6 +9,7 @@ without training; `--mesh` without a world and `--distributed` with
 
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -24,6 +25,11 @@ from lbdrn_msic_tpu_torch.parallel.distributed import JobScheduler
 from lbdrn_msic_tpu_torch.train import loop
 from lbdrn_msic_tpu_torch.utils.logging import scrape_log
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 FLAGS = ["--k-min", "4", "--k-max", "5", "-e", "1", "-bs", "1024", "--base-codec", "lpc"]
 CPU = ["--device", "cpu"]

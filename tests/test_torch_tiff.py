@@ -4,6 +4,9 @@ arrays from every file variant tests/test_io.py builds, and the port's
 native LZW / PackBits decoders (its own `_native` build) agree with the
 Python decoders.  All comparisons are exact."""
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -11,6 +14,11 @@ from lbdrn_msic_tpu.io import tiff as jtiff
 from lbdrn_msic_tpu_torch.codecs import _native
 from lbdrn_msic_tpu_torch.io import tiff
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 
 def _arrays(rng):

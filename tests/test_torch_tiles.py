@@ -6,6 +6,8 @@ Tolerances: the gate is integer arithmetic, equal exactly; the overlapped
 and serial streams are equal byte for byte (same draws, same programs).
 """
 
+import os
+import sys
 import warnings
 
 import pytest
@@ -16,6 +18,11 @@ from lbdrn_msic_tpu.core.config import TrainSpec as JTrainSpec
 from lbdrn_msic_tpu_torch import codec
 from lbdrn_msic_tpu_torch.core.config import CodecConfig, FeatureSpec, TrainSpec
 from lbdrn_msic_tpu_torch.utils.synth import synth_scene
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
 
 # (C, H, W, split_ratio, granule): tiles that open the gate (small, the
 # GF-2 scene's "full" quarters, WFI quarters) and shut it (a cached tile

@@ -34,6 +34,11 @@ from lbdrn_msic_tpu_torch.scripts import (ablations, make_sample, rd_validation,
                                           repro_all, substitute_anchors)
 from lbdrn_msic_tpu_torch.scripts.suite import synth_suite
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_jax_native import ensure_jax_native  # noqa: E402
+
+ensure_jax_native()  # the reference's native library: once per worker, under a lock
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
