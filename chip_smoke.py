@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
     python3 chip_smoke.py --only kernels
-    python3 chip_smoke.py --only cli   # encode/decode/rd and cli phases only
+    python3 chip_smoke.py --only cli   # encode/decode and cli phases only
     python3 chip_smoke.py --only dataset   # the dataset and sweep_cli phases only
     python3 chip_smoke.py --only flagship  # the staging, tiles and flagship phases only
     python3 chip_smoke.py --only validation  # the multi_k and validation phases only
@@ -53,13 +53,14 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            streamed lpc path, "dispatch_pipelined"), interleaved with three
            through the plain path (the whole base decoded, then the band
            dispatch), bit for bit equal; MSBs exact; PSNR
-  rd       fused-kernel encode vs exact-step (use_fused=False) encode of the
-           same scene and seed: PSNR within 0.1 dB
+  rd       (after the bench line) the decode phase's PSNR vs the bench
+           phase's exact-step (use_fused=False) encode of the same scene
+           and seed (jp2 base): within 0.1 dB
   sweep    the rate sweep of the same scene, K in {3, 4, 5, 6}, "full" tap
-           staging: one warm and one timed `encode_rate_points`, each of
-           which must launch K2 exactly 5120 times (and K1 never); streams
-           byte-identical across sweeps; each point decoded (MSBs exact)
-           and held against `encode_image` at its K (PSNR within 0.1 dB)
+           staging: one timed `encode_rate_points` (the bench phase times
+           three), which must launch K2 exactly 5120 times (and K1 never);
+           each point's stream byte for byte `encode_image`'s at its K (so
+           deterministic), decoded (MSBs exact), PSNR within 0.1 dB of it
   bench    the port's bench.py, `scripts.bench.run("cuda")` at its defaults
            (the encode cell's scene and config with the jp2 base codec: one
            warm-up encode, sweep and decode, the fused parity check, five
@@ -144,12 +145,13 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            phases
   dataset  the dataset workload (`encode_dataset`), each run with the counts
            zeroed before it: (a) bench.py's dataset cell, scenes 42 and 43 x K
-           in {3, 4, 5, 6}, one warm and one timed run, each exactly 5120
-           K2 launches at E = 8 and no K1, deterministic, every stream
-           `encode_image`'s; (b) bucket=True on scene 42 and its 1900x2000
-           crop: one chunk, 5120 K2 launches with (E, B) masks, the crop's
-           streams `encode_image(bucket=True)`'s (else within 0.1 dB); (c)
-           both scenes at K=5: the pipelined path, 2 x 5120 K1 launches,
+           in {3, 4, 5, 6}, one timed run (the bench phase times three),
+           exactly 5120 K2 launches at E = 8 and no K1, every stream
+           `encode_image`'s byte for byte (so deterministic); (b)
+           bucket=True on scene 42 and its 1900x2000 crop: one chunk, 5120
+           K2 launches with (E, B) masks, the crop's streams
+           `encode_image(bucket=True)`'s (else within 0.1 dB); (c) both
+           scenes at K=5: the pipelined path, 2 x 5120 K1 launches,
            `encode_image`'s bytes, seconds against two `encode_image`
            calls; (d) a coordinate sweep of scene 42 (F_pad 256): 5120 K2
            launches, each point `encode_image`'s.  Then
@@ -198,25 +200,26 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            (256^2, 2 scenes, four groups, 23 variants: each variant's K1 /
            K2 launches exactly epochs x steps per fit, MSB-exact, BD
            against its group's anchor) and its network group at the bench
-           scene (2048^2, K2 at E = 6 through bc=256, 5120 launches a
-           variant); the multi_k phase's multik_ab rows.  Whether OpenCV
-           is present, and what its absence left out
+           scene (2048^2, e=2, K2 at E = 6 through bc=256, 2 x 512 = 1024
+           launches a variant); the multi_k phase's multik_ab rows.
+           Whether OpenCV is present, and what its absence left out
   mesh     multi-card parallelism on the one card: a world of 2 processes,
            both on cuda:0 over gloo (started by the script, joined with a
            timeout), each with the launch counts zeroed just before each
            run and read just after: the ep = 2 rate sweep of the bench scene
            at K 3..6 (K2 at E = 2 on each rank, 5120 launches each, every
-           stream the sweep phase's byte for byte), the dp = 2 encode at K=5
-           (the exact step with the gradients summed over the ranks, no K1:
-           the same stream on both ranks, MSB-exact, within 0.1 dB of the
-           encode phase's fused encode) and the sp = 2 decode of the encode
-           phase's stream (bit for bit the single-card decode); per rank its
+           stream the sweep phase's byte for byte), the dp = 2 encode at K=5,
+           e=2 (the exact step with the gradients summed over the ranks, no
+           K1: the same stream on both ranks, MSB-exact, within 0.1 dB of a
+           single-card fused encode at e=2) and the sp = 2 decode of the
+           encode phase's stream (bit for bit the single-card decode); per rank its
            seconds, launches, peak device memory and backend; then a world
            of 1 over NCCL runs the collective helper on CUDA tensors.
            Multi-card NCCL is not verified (one card)
-Then the whole script's seconds, the kernels line (K1-K4, K5 per variant;
-K1's and K2's launches_by_path per path), the card line, and the final
-status line.  Exits non-zero without
+Every phase line carries `total_seconds`, its wall seconds.  Then the
+whole script's seconds and each phase's (`phase_seconds`), the kernels
+line (K1-K4, K5 per variant; K1's and K2's launches_by_path per path), the
+card line, and the final status line.  Exits non-zero without
 a result when CUDA is absent or the
 package is missing.
 """
@@ -244,7 +247,21 @@ FUSED_STEP_KERNELS = ("step_partials", "step_adam", "multi_step")
 K1_KERNELS = FUSED_STEP_KERNELS[:2]  # one K1 step's two passes
 
 
+# each phase line's wall seconds (its own `total_seconds`, else the time
+# since the phase line before it or the start of main): the total line's
+# phase_seconds
+PHASE_SECONDS = {}
+_phase_mark = [time.time()]
+
+
 def emit(obj) -> None:
+    """Print obj as one JSON line.  A phase line other than the total line
+    gains `total_seconds` unless it has its own, and enters PHASE_SECONDS."""
+    if "phase" in obj and obj["phase"] != "total":
+        now = time.time()
+        name = obj["phase"] if obj["phase"] != "profile" else f"profile_{obj['of']}"
+        PHASE_SECONDS[name] = obj.setdefault("total_seconds", now - _phase_mark[0])
+        _phase_mark[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1434,32 +1451,30 @@ def phase_codec(profile: bool, kernel):
                          "phases": pstats.phases, "bit_identical_to_streamed": True},
           "jax_package_rd_point": {"psnr_db": 61.79, "bpsp": 1.958,
                                    "source": "BENCH_r05.json"}})
-
-    t0 = time.time()
-    s_x, st_x = encode_image(img, cfg, use_fused=False)
-    exact_s = time.time() - t0
-    p_x = psnr(img, decode_stream(s_x)[0])
-    assert abs(p - p_x) < 0.1, (p, p_x)
-    emit({"phase": "rd", "shape": [4, H, W], "psnr_fused_db": p,
-          "psnr_exact_step_db": p_x, "bpsp_fused": stats.bpsp, "bpsp_exact_step": st_x.bpsp,
-          "exact_step_encode_s": exact_s})
-    return {"stream": streams[0], "psnr_db": p, "bpsp": stats.bpsp}
+    return {"stream": streams[0], "psnr_db": p, "bpsp": stats.bpsp, "img": img}
 
 
-# timed runs of the sweep phase and of the dataset phase's cell (a): the
-# bench phase times both cells three times, as bench.py does
-CELL_TIMED_RUNS = 1
+def phase_rd(encoded, bench_rec):
+    """The fused encode's PSNR (the decode phase's) against the bench
+    phase's exact-step (use_fused=False) encode of the same scene and
+    config (`bench_rec`): within 0.1 dB.  The bench codes the base with
+    jp2, which changes the stream, not the residuals; the bpsp pair is
+    the bench's."""
+    p = encoded["psnr_db"]
+    assert abs(p - bench_rec["psnr_exact_step_db"]) < 0.1, (p, bench_rec["psnr_exact_step_db"])
+    emit({"phase": "rd", "shape": list(encoded["img"].shape), "psnr_fused_db": p,
+          "base_codec": "jp2", "bpsp_fused": bench_rec["bpsp"],
+          **{k: bench_rec[k] for k in ("psnr_exact_step_db", "bpsp_exact_step",
+                                       "exact_step_encode_s")}})
 
 
 def phase_sweep(profile: bool, kernel):
     import numpy as np
-    import torch
 
     from lbdrn_msic_tpu_torch.codec import (
         decode_stream, encode_image, encode_rate_points, plan_rate_points)
     from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
     from lbdrn_msic_tpu_torch.eval.metrics import psnr
-    from lbdrn_msic_tpu_torch.ops.fused_step import fused_expert_step, fused_train_step
     from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
     H = W = 2048
@@ -1472,24 +1487,13 @@ def phase_sweep(profile: bool, kernel):
     staging, dtypes, groups, staged = plan_rate_points(img, cfgs)
     assert staging == "full" and groups == [list(range(len(Ks)))], (staging, groups)
 
-    t0 = time.time()
-    warm = [s for s, _ in encode_rate_points(img, cfgs)]
-    warm_s = time.time() - t0
-    secs, launches = [], []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(CELL_TIMED_RUNS):
-        fused_train_step.launches = fused_expert_step.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res = encode_rate_points(img, cfgs)
-        secs.append(time.time() - t0)
-        launches.append(fused_expert_step.launches)
-        assert fused_train_step.launches == 0, fused_train_step.launches
-        assert [s for s, _ in res] == warm, "same seed gave different sweep streams"
-    assert launches == [n_steps] * CELL_TIMED_RUNS, (launches, n_steps)
-    kernel["launches"] = launches[0]
-    kernel["launches_by_path"] = {"sweep": launches[0]}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # one timed sweep (the bench phase times three): each stream held byte
+    # for byte against encode_image's, which a nondeterministic run fails
+    res, sec, launches, peak_gb = counted_run(lambda: encode_rate_points(img, cfgs))
+    secs = [sec]
+    assert launches == [0, n_steps], (launches, n_steps)
+    kernel["launches"] = launches[1]
+    kernel["launches_by_path"] = {"sweep": launches[1]}
 
     points, solos = [], []
     for cfg, (stream, stats) in zip(cfgs, res):
@@ -1497,19 +1501,20 @@ def phase_sweep(profile: bool, kernel):
         assert rec.shape == img.shape and np.array_equal(rec >> cfg.K, img >> cfg.K), cfg.K
         solo, solo_stats = encode_image(img, cfg)
         solos.append(solo)
+        assert solo == stream, ("sweep stream differs from encode_image's", cfg.K)
         p, p_solo = psnr(img, rec), psnr(img, decode_stream(solo)[0])
         assert abs(p - p_solo) < 0.1, (cfg.K, p, p_solo)
         points.append({"K": cfg.K, "psnr_db": p, "bpsp": stats.bpsp,
                        "best_epoch": stats.tiles[0].best_epoch,
                        "best_mse": stats.tiles[0].best_mse,
-                       "identical_to_encode_image": solo == stream,
+                       "identical_to_encode_image": True,
                        "sha256": hashlib.sha256(stream).hexdigest(),
                        "psnr_encode_image_db": p_solo, "bpsp_encode_image": solo_stats.bpsp})
     emit({"phase": "sweep", "shape": [4, H, W], "Ks": list(Ks), "staging": staging,
           "tap_dtypes": [str(d).replace("torch.", "") for d in dtypes],
-          "staged_tap_bytes": sum(staged), "warm_s": warm_s, "seconds": secs,
+          "staged_tap_bytes": sum(staged), "seconds": secs,
           "mpx_s_per_point": [mpx * len(Ks) / s for s in secs],
-          "phases": res[0][1].phases, "launches": launches, "expected_launches": n_steps,
+          "phases": res[0][1].phases, "launches": [launches[1]], "expected_launches": n_steps,
           "deterministic": True, "peak_device_gb": peak_gb, "points": points})
 
     if profile:
@@ -1519,7 +1524,8 @@ def phase_sweep(profile: bool, kernel):
 
 def phase_bench(k1, k2, decode_psnr=None):
     """`scripts.bench.run` at its defaults, counted; `decode_psnr`: the
-    decode phase's PSNR, which the bench's must equal."""
+    decode phase's PSNR, which the bench's must equal.  Returns the run's
+    record."""
     from lbdrn_msic_tpu_torch.scripts import bench
 
     n_steps = 10 * -(-(-(-2048 * 2048 // 8)) // (8192 // 8))
@@ -1544,6 +1550,7 @@ def phase_bench(k1, k2, decode_psnr=None):
           "launches_k2": launches[1], "expected_launches": want, "seconds": secs,
           "peak_gb": peak, "card": card_line(),
           "jax_package_rd_point": {"psnr_db": 61.79, "bpsp": 1.958, "source": "BENCH_r05.json"}})
+    return rec
 
 
 def same_fit(a, b) -> bool:
@@ -2002,22 +2009,16 @@ def phase_dataset(profile: bool, k1, k2, sweep_solos=None):
             solos[key], solo_s[key] = stream, secs
         return solos[key]
 
-    # (a) bench.py's dataset cell (bench.py:183-193)
+    # (a) bench.py's dataset cell (bench.py:183-193), one timed run (the
+    # bench phase times three): every stream held byte for byte against
+    # encode_image's below, which a nondeterministic run fails
     jobs_a = [(scenes[s], cfgs[K]) for s in (42, 43) for K in Ks]
-    t0 = time.time()
-    warm_res = codec.encode_dataset(jobs_a)
-    warm_s = time.time() - t0
-    warm = [s for s, _ in warm_res]
-    plan = warm_res[0][1].plan  # the group's plan, as the encode ran it
+    res, sec, launches, peak = counted_run(lambda: codec.encode_dataset(jobs_a))
+    secs, peaks = [sec], [peak]
+    assert launches == [0, n_steps], launches
+    plan = res[0][1].plan  # the group's plan, as the encode ran it
     assert plan.staging == "full" and plan.chunks == [list(range(8))], plan
     assert plan.budget == codec.STAGE_BUDGET_BYTES, plan.budget
-    secs, peaks = [], []
-    for _ in range(CELL_TIMED_RUNS):
-        res, sec, launches, peak = counted_run(lambda: codec.encode_dataset(jobs_a))
-        assert launches == [0, n_steps], launches
-        assert [s for s, _ in res] == warm, "same seed gave different dataset streams"
-        secs.append(sec)
-        peaks.append(peak)
     streams_a = {(s, K): stream for (s, K), (stream, _) in
                  zip([(s, K) for s in (42, 43) for K in Ks], res)}
     for (s, K), stream in streams_a.items():
@@ -2029,7 +2030,7 @@ def phase_dataset(profile: bool, k1, k2, sweep_solos=None):
          "tap_dtypes": [str(d).replace("torch.", "") for d in plan.dtypes],
          "staged_bytes": res[0][1].tiles[0].staged_bytes,
          "staged_bytes_estimate": sum(plan.per_expert), "chunks": plan.chunks,
-         "warm_s": warm_s, "seconds": secs, "seconds_per_point": [x / 8 for x in secs],
+         "seconds": secs, "seconds_per_point": [x / 8 for x in secs],
          "mpx_s_per_point": [8 * mpx / x for x in secs], "peak_device_gb": peaks,
          "launches_k1": 0, "launches_k2": n_steps, "deterministic": True,
          "identical_to_encode_image": True,
@@ -2506,6 +2507,9 @@ def sweep_launches(images, cfg, ks):
 # the validation studies' suites (size, scenes): the scripts' defaults, and
 # the ablations' network group at the bench scene (repro_all's ablations2048)
 VALIDATION_SUITES = {"rd": (512, 3), "ablations": (256, 2), "network": (2048, 1)}
+# that network group's epochs (its variants' default is 10): each width's
+# K2 fits at the bench scene's staging, a fifth of the steps
+NETWORK_2048_EPOCHS = 2
 
 
 def phase_validation(k1, k2, multik):
@@ -2514,10 +2518,12 @@ def phase_validation(k1, k2, multik):
     substitute_anchors, recipe_study and the ablation matrix at their
     defaults, then the ablations' network group at the bench scene
     (2048^2, one scene, repro_all's ablations2048).  Launch counts exact,
-    every stream MSB-exact, BD against each study's anchor.  The JPEG 2000
+    every stream MSB-exact, BD against each study's anchor; the network
+    group at 2048^2 trains NETWORK_2048_EPOCHS.  The JPEG 2000
     anchors and the half-step BDR slot are OpenCV's: without it they are
     left out (listed) and the LBDRN streams take the lpc base.  multik:
     the multi_k phase's `profiling.multik_ab` rows."""
+    import dataclasses
     import tempfile
 
     from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
@@ -2605,10 +2611,14 @@ def phase_validation(k1, k2, multik):
             row.update(bd(res[row["tag"]]) if row["tag"] in res else {})
         recipe["table"] = table[5:]
 
-        # the ablation matrix: every variant's sweep counted and checked
-        variants = []
+        # the ablation matrix: every variant's sweep counted and checked,
+        # at the variant's epochs or at epochs[0] where that is set
+        variants, epochs = [], [None]
 
         def counted_sweep(images, cfg, ks_, granule, path, device=None):
+            if epochs[0] is not None:
+                cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                         epochs=epochs[0]))
             (out, n_exact), secs, launches, peak = counted_run(
                 lambda: real_sweep(images, cfg, ks_, granule, path, device))
             want = sweep_launches(images, cfg, ks_)
@@ -2641,6 +2651,7 @@ def phase_validation(k1, k2, multik):
         with replaced(ablations, "sweep_variant_csv", counted_sweep):
             abl = matrix(imgs_abl, ablations.GROUPS, os.path.join(tmp, "ablations"))
             imgs_net = synth_suite(*VALIDATION_SUITES["network"])
+            epochs[0] = NETWORK_2048_EPOCHS
             net = matrix(imgs_net, ["network"], os.path.join(tmp, "ablations_2048"))
         for group, rows in (*abl.items(), ("network_2048", net["network"])):
             for kern, key in ((k1, "launches_k1"), (k2, "launches_k2")):
@@ -2654,7 +2665,7 @@ def phase_validation(k1, k2, multik):
           "ablations_256": {"size_scenes": VALIDATION_SUITES["ablations"], "Ks": ks,
                             "groups": abl},
           "network_2048": {"size_scenes": VALIDATION_SUITES["network"], "Ks": ks,
-                           **net["network"]},
+                           "epochs": NETWORK_2048_EPOCHS, **net["network"]},
           "multik_ab": [{k: row[k] for k in ("multi_k", "seconds", "launches", "kernel",
                                               "identical_to_multi_k_0")} for row in multik],
           "total_seconds": time.time() - t_phase})
@@ -2664,18 +2675,24 @@ def phase_validation(k1, k2, multik):
 MESH_WORLD = 2
 MESH_GROUP_TIMEOUT_S = 300
 MESH_JOIN_S = 600
+# the dp = 2 encode's epochs (the exact step, ~4 s an epoch on both ranks):
+# two show the ranks' agreement and the fit's as ten do
+MESH_DP_EPOCHS = 2
 
 
 def bench_mesh_inputs():
-    """The bench scene and the mesh phase's configs: the sweep's K 3..6 and
-    the encode's K=5 (lpc base, g=8, e=10)."""
+    """The bench scene and the mesh phase's configs: the sweep's K 3..6
+    (lpc base, g=8, e=10) and the dp encode's K=5 at MESH_DP_EPOCHS."""
+    import dataclasses
+
     from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
     from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
     img = synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42)
     train = TrainSpec(sample_granule=8, epochs=10)
     cfgs = [CodecConfig(K=K, base_codec="lpc", train=train) for K in (3, 4, 5, 6)]
-    return img, cfgs, cfgs[2]
+    return img, cfgs, dataclasses.replace(
+        cfgs[2], train=dataclasses.replace(train, epochs=MESH_DP_EPOCHS))
 
 
 def mesh_rank(rank: int, world: int, work: str) -> None:
@@ -2703,7 +2720,7 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
     img = np.load(os.path.join(work, "img.npy"))
     with open(os.path.join(work, "stream.bin"), "rb") as f:
         stream = f.read()
-    _, cfgs, cfg = bench_mesh_inputs()
+    _, cfgs, dp_cfg = bench_mesh_inputs()
     timeout = datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S)
     ep, dp = make_mesh(ep=world, timeout=timeout), make_mesh(dp=world, timeout=timeout)
     out = {"rank": rank, "backend": dist.get_backend()}
@@ -2723,7 +2740,7 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
 
     out["ep"]["streams"] = [s for s, _ in run("ep", lambda: encode_rate_points(img, cfgs,
                                                                                 mesh=ep))]
-    out["dp"]["stream"] = run("dp", lambda: encode_image(img, cfg, mesh=dp))[0]
+    out["dp"]["stream"] = run("dp", lambda: encode_image(img, dp_cfg, mesh=dp))[0]
     rec = run("sp", lambda: decode_stream(stream, mesh=dp))[0]
     out["sp"]["sha256"] = hashlib.sha256(rec.tobytes()).hexdigest()
     with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
@@ -2735,10 +2752,11 @@ def phase_mesh(card: str, k2, sweep_streams=None, encoded=None):
     """Multi-card parallelism on the one card: a world of MESH_WORLD
     processes over gloo on cuda:0 runs the ep = 2 sweep (every stream the
     sweep phase's, K2 at E = 2, epochs x steps launches per rank), the
-    dp = 2 encode (MSB-exact, within 0.1 dB of the single-card fused
-    encode) and the sp = 2 decode of the bench stream (bit for bit the
-    single-card decode); then a world of 1 over NCCL runs the collective
-    helper on CUDA tensors.  The references come from the sweep and encode
+    dp = 2 encode at MESH_DP_EPOCHS (MSB-exact, within 0.1 dB of a
+    single-card fused encode at those epochs, made here) and the sp = 2
+    decode of the bench stream (bit for bit the single-card decode); then
+    a world of 1 over NCCL runs the collective helper on CUDA tensors.  The
+    sweep and bench-stream references come from the sweep and encode
     phases, or are made here (`--only mesh`)."""
     import datetime
     import pickle
@@ -2755,13 +2773,15 @@ def phase_mesh(card: str, k2, sweep_streams=None, encoded=None):
     from lbdrn_msic_tpu_torch.parallel.shard import make_mesh
 
     t_phase = time.time()
-    img, cfgs, cfg = bench_mesh_inputs()
-    n_steps = cfg.train.epochs * -(-(-(-2048 * 2048 // 8)) // (cfg.train.batch_size // 8))
+    img, cfgs, dp_cfg = bench_mesh_inputs()
+    train = cfgs[0].train
+    n_steps = train.epochs * -(-(-(-2048 * 2048 // 8)) // (train.batch_size // 8))
     if sweep_streams is None:
         sweep_streams = [s for s, _ in encode_rate_points(img, cfgs)]
     if encoded is None:
-        stream, _ = encode_image(img, cfg)
-        encoded = {"stream": stream, "psnr_db": psnr(img, decode_stream(stream)[0])}
+        encoded = {"stream": encode_image(img, cfgs[2])[0]}
+    dp_ref = encode_image(img, dp_cfg)[0]
+    p_ref = psnr(img, decode_stream(dp_ref)[0])
     ref_sha = hashlib.sha256(decode_stream(encoded["stream"])[0].tobytes()).hexdigest()
 
     with tempfile.TemporaryDirectory() as work:
@@ -2798,8 +2818,8 @@ def phase_mesh(card: str, k2, sweep_streams=None, encoded=None):
         assert r["ep"]["launches_k2"] == n_steps and r["ep"]["launches_k1"] == 0, r["ep"]
         assert r["dp"]["stream"] == dp_stream, "the dp ranks returned different streams"
         assert r["sp"]["sha256"] == ref_sha, "sp decode differs from the single-card decode"
-    assert np.array_equal(rec >> cfg.K, img >> cfg.K), "dp encode: MSB path corrupted"
-    assert abs(p_dp - encoded["psnr_db"]) < 0.1, (p_dp, encoded["psnr_db"])
+    assert np.array_equal(rec >> dp_cfg.K, img >> dp_cfg.K), "dp encode: MSB path corrupted"
+    assert abs(p_dp - p_ref) < 0.1, (p_dp, p_ref)
     k2["launches_by_path"]["mesh_ep_per_rank"] = ranks[0]["ep"]["launches_k2"]
 
     # a world of 1 over NCCL: the collective helper on CUDA tensors, over
@@ -2832,8 +2852,8 @@ def phase_mesh(card: str, k2, sweep_streams=None, encoded=None):
                  "expected_launches_per_rank": n_steps,
                  "identical_to_sweep_phase": True,
                  "sha256": [hashlib.sha256(s).hexdigest() for s in sweep_streams]},
-          "dp": {"dp": MESH_WORLD, "K": cfg.K, "psnr_db": p_dp,
-                 "psnr_single_card_fused_db": encoded["psnr_db"], "bpsp": len(dp_stream) * 8
+          "dp": {"dp": MESH_WORLD, "K": dp_cfg.K, "epochs": MESH_DP_EPOCHS, "psnr_db": p_dp,
+                 "psnr_single_card_fused_db": p_ref, "bpsp": len(dp_stream) * 8
                  / img.size, "msb_exact": True, "identical_across_ranks": True,
                  "sha256": hashlib.sha256(dp_stream).hexdigest()},
           "sp": {"sp": MESH_WORLD, "bit_identical_to_single_card_decode": True,
@@ -2849,8 +2869,8 @@ def main():
     ap.add_argument("--only", choices=("kernels", "cli", "dataset", "flagship", "validation",
                                        "mesh", "bench"),
                     default=None,
-                    help="kernels: the kernel phases only; cli: the encode, decode "
-                         "and rd phases and the cli phase only; dataset: the dataset "
+                    help="kernels: the kernel phases only; cli: the encode and decode "
+                         "phases and the cli phase only; dataset: the dataset "
                          "and sweep_cli phases only; flagship: the staging, tiles and "
                          "flagship phases only; validation: the multi_k and validation phases "
                          "only; mesh: the mesh phase only; bench: the bench phase "
@@ -2863,7 +2883,7 @@ def main():
                     help="also trace one encode, one sweep, two fits, two GF-2 epochs "
                          "and one dataset encode with torch.profiler")
     args = ap.parse_args()
-    t_script = time.time()
+    t_script = _phase_mark[0] = time.time()
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -2908,9 +2928,7 @@ def main():
     if args.only == "cli":
         k1 = {"launches_by_path": {}}
         encoded = phase_codec(args.profile, k1)
-        from lbdrn_msic_tpu_torch.utils.synth import synth_scene
-
-        phase_cli(k1, encoded, synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42))
+        phase_cli(k1, encoded, encoded["img"])
         emit({"k1_launches_by_path": k1["launches_by_path"]})
         return
     if args.only == "dataset":
@@ -2953,19 +2971,18 @@ def main():
     if args.only != "kernels":
         encoded = phase_codec(args.profile, k1)
         sweep_solos, sweep_streams = phase_sweep(args.profile, k2)
-        phase_bench(k1, k2, encoded["psnr_db"])
+        phase_rd(encoded, phase_bench(k1, k2, encoded["psnr_db"]))
         multik = phase_multi_k(card, args.profile, k3, k4)
         gf2 = phase_staging(args.profile, k1, k2)
         phase_tiles(k1, gf2)
-        from lbdrn_msic_tpu_torch.utils.synth import synth_scene
-
-        phase_cli(k1, encoded, synth_scene(2048, 2048, channels=4, effective_bits=12, seed=42))
+        phase_cli(k1, encoded, encoded["img"])
         phase_sweep_cli(k1, k2, phase_dataset(args.profile, k1, k2, sweep_solos))
         phase_flagship(k1, k2, gf2)
         del gf2
         phase_validation(k1, k2, multik)
         phase_mesh(card, k2, sweep_streams, encoded)
-    emit({"phase": "total", "script_seconds": time.time() - t_script})
+    emit({"phase": "total", "script_seconds": time.time() - t_script,
+          "phase_seconds": PHASE_SECONDS})
     emit({"kernels": [k1, k2, k3, k4, *k5]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

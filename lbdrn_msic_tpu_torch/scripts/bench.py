@@ -200,7 +200,8 @@ def run(device, size: int = 2048, epochs: int = 10, encode_repeats: int = 5,
 
     # end to end: the fused-step encode and the exact-step encode must land
     # the same rate-distortion point
-    stream_x, _ = encode_image(img, cfg, use_fused=False, device=device)
+    (stream_x, stats_x), exact_s = timed(
+        lambda: encode_image(img, cfg, use_fused=False, device=device))
     p_x = psnr(img, decode_stream(stream_x, device=device)[0])
     assert abs(p - p_x) < 0.1, (p, p_x)
 
@@ -235,6 +236,7 @@ def run(device, size: int = 2048, epochs: int = 10, encode_repeats: int = 5,
         "device": device_info(device),
     }
     return {"line": line, "psnr_db": p, "psnr_exact_step_db": p_x, "bpsp": stats.bpsp,
+            "bpsp_exact_step": stats_x.bpsp, "exact_step_encode_s": exact_s,
             "encode_s": enc_samples, "sweep_s_per_point": sweep_samples,
             "dataset_s_per_point": ds_samples, "decode_s": dec_samples, "warmup_s": warm,
             "phases": stats.phases}

@@ -45,7 +45,8 @@ def test_run_cpu_toy_line():
     """bench.py's workload at 64^2, one epoch, one run of each: the line
     holds bench.py's keys and `device`, parity holds, the rates are
     positive, the device is the CPU with no power limit; the exact-step
-    PSNR lies within 0.1 dB of the fused one (run asserts it too)."""
+    PSNR lies within 0.1 dB of the fused one (run asserts it too), and the
+    record gives the exact-step encode's bpsp and seconds."""
     rec = bench.run("cpu", size=64, epochs=1, encode_repeats=1, repeats=1, base_codec="lpc")
     line = rec["line"]
     keys = _jax_bench_keys()
@@ -60,6 +61,7 @@ def test_run_cpu_toy_line():
     assert line["device"] == {"name": "cpu", "count": 1, "power_limit": None}
     assert line["psnr_db"] == round(rec["psnr_db"], 2) and np.isfinite(rec["psnr_db"])
     assert abs(rec["psnr_db"] - rec["psnr_exact_step_db"]) < 0.1
+    assert rec["bpsp_exact_step"] > 0 and rec["exact_step_encode_s"] > 0
     assert line["bpsp"] > 0
     assert len(rec["encode_s"]) == len(rec["sweep_s_per_point"]) == 1
 

@@ -6,7 +6,10 @@ the reference's LPC codec round-trips; (b) six processes that start the
 reference's unlocked in-place build at the same moment on a fresh copy of
 its sources all end with a library, and give the same LPC bytes as this
 process; (c) a source that does not compile raises RuntimeError with the
-compiler's message, never a skip; (d) a loaded library returns at once."""
+compiler's message, never a skip; (d) a loaded library returns at once;
+(e) the root conftest's `pytest_configure` loads the library in a process
+whose unlocked first load lost the race; (f) importing the root conftest,
+and calling its hook, imports no `jax`."""
 
 import hashlib
 import importlib.util
@@ -24,6 +27,7 @@ from lbdrn_msic_tpu.codecs import _native, lpc
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
+ROOT_CONFTEST = os.path.join(REPO, "conftest.py")
 sys.path.insert(0, HERE)
 from torch_jax_native import ensure_jax_native  # noqa: E402
 
@@ -121,3 +125,39 @@ def test_loaded_library_returns_at_once(tmp_path):
     lib = object()
     stub = types.SimpleNamespace(_lib=lib, _DIR=str(tmp_path / "absent"), load=None)
     assert ensure_jax_native(module=stub) is lib
+
+
+def test_root_conftest_loads_after_a_lost_race(tmp_path, monkeypatch, pytestconfig):
+    from lbdrn_msic_tpu import codecs
+
+    mod = _loader_copy(tmp_path, "native_lost_race")
+    # another worker's library, half-written: newer than the sources, unloadable
+    with open(mod._SO, "wb") as f:
+        f.write(b"\x7fELF")
+    assert mod.load() is None and mod._tried and not mod.available()
+    shutil.copy(_native._SO, mod._SO)  # that worker's linker finishes the file
+    assert not mod.available()  # the loader keeps its failure for the process
+    monkeypatch.setattr(codecs, "_native", mod)
+    spec = importlib.util.spec_from_file_location("root_conftest", ROOT_CONFTEST)
+    root = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root)
+    root.pytest_configure(pytestconfig)
+    assert mod.available() and mod._lib is not None
+
+
+def test_root_conftest_imports_no_jax():
+    code = (
+        "import importlib.util, json, sys\n"
+        f"spec = importlib.util.spec_from_file_location('root_conftest', {ROOT_CONFTEST!r})\n"
+        "root = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(root)\n"
+        "jax = lambda: sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib'))\n"
+        "imported = jax()\n"
+        "root.pytest_configure(None)\n"
+        "print(json.dumps([imported, jax()]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], []]
