@@ -86,9 +86,17 @@ class EncodeStats:
     total_bytes: int
     n_subpixels: int
     elapsed: float
-    # host-side phase accounting: dispatch (h2d + prep + training queued),
-    # train_wait (blocking on the device), weights_codec, base_wait (a rate
-    # sweep: finalize, the two of every point)
+    # host seconds by phase (`utils/profiling.PhaseTimer`): dispatch (the
+    # upload, the base codecs' submission and the fit), and inside it the
+    # fit's stage (copies, labels, staged features or taps, buffers,
+    # init), steps (every epoch's batches and step calls issued) and eval
+    # (each eval's issue and the sync reading its MSE), with eval_device
+    # the evals' seconds on the device clock (CUDA events; none on the
+    # CPU); then train_wait (fetching the trained weights), weights_codec
+    # and base_wait (`encode_image`), or finalize (a rate sweep's or a
+    # dataset chunk's weight coding and base codec wait, for the group).
+    # A rate sweep's group and a dataset's chunk share one dict among
+    # their points.  None on the other paths
     phases: Optional[dict] = None
     # the plan of the expert group the job trained in (`encode_dataset`);
     # None where it trained alone
@@ -103,8 +111,11 @@ class EncodeStats:
 class DecodeStats:
     elapsed: float
     header: StreamHeader
-    # base_decode (host base codec), dispatch (weight decode + device
-    # residual dispatch), fetch_assemble (d2h bitplanes + host assembly)
+    # host seconds by phase: base_decode (host base codec), dispatch
+    # (weight decode + device residual dispatch) or dispatch_pipelined (the
+    # streamed lpc path: both, interleaved), fetch_assemble (d2h bitplanes
+    # + host assembly); with `decode_pipelined_iter`, dispatch_wait (the
+    # caller's wait on the dispatch worker, which runs the first three)
     phases: Optional[dict] = None
 
 
@@ -365,11 +376,13 @@ def _adopt_tile(up: _TileOnDevice, done, device: torch.device) -> _TileOnDevice:
 
 def _train_tile(tile: np.ndarray, cfg: CodecConfig, generator: torch.Generator,
                 device: torch.device, use_fused: Optional[bool] = None,
-                bucket: bool = False, up: Optional[_TileOnDevice] = None, mesh=None):
+                bucket: bool = False, up: Optional[_TileOnDevice] = None, mesh=None,
+                timer: Optional[PhaseTimer] = None):
     """Train one tile's network; returns (flat_fn, fit_result).  `up`: the
     tile already on the device (`_upload_tile`), else it is uploaded here;
     `bucket` as `_upload_tile` takes it.  With a `mesh` whose "dp" axis is
-    > 1 the tile trains data-parallel over it (`parallel.shard.fit_dp`)."""
+    > 1 the tile trains data-parallel over it (`parallel.shard.fit_dp`).
+    `timer` takes the fit's phases (`fit`; not on the data-parallel path)."""
     C = tile.shape[0]
     if up is None:
         up = _upload_tile(tile, cfg, device, bucket)
@@ -383,7 +396,7 @@ def _train_tile(tile: np.ndarray, cfg: CodecConfig, generator: torch.Generator,
             up.plane, up.plane_scale, up.labels, label_scale, generator,
             cfg.features, cfg.model, cfg.train, up.H, up.W, C,
             staging=up.staging, tap_dtype=up.tap_dtype, use_fused=use_fused, hw=up.hw,
-            device=device,
+            device=device, timer=timer,
         )
 
     def flat_fn():
@@ -472,7 +485,7 @@ def encode_image(
                     ahead = (base_of(nxt),
                              upload_pool.submit(_upload_tile_aside, nxt, cfg, device, bucket))
                 flat_fn, result = _train_tile(tile, cfg, tile_generator(seed, tile_idx), device,
-                                              use_fused, up=up, mesh=mesh)
+                                              use_fused, up=up, mesh=mesh, timer=timer)
             with timer.phase("train_wait"):
                 flat = flat_fn()  # blocks on the device result
             t2 = time.time()
@@ -714,7 +727,7 @@ def encode_rate_points(
                     dev_img, [cfgs[i].K for i in grp], tile_generator(seed, 0),
                     fspec, cfg0.model, cfg0.train, H, W, C,
                     tap_dtypes=[dtypes[i] for i in grp], use_fused=use_fused,
-                    staging=staging, device=device,
+                    staging=staging, device=device, timer=timer,
                 )
             with timer.phase("train_wait"):  # blocks on the device result
                 flats = [flatten_params(unstack_params(result.params, e),
@@ -1075,39 +1088,45 @@ def _encode_job_group(
     dev_cache: dict = {}  # image index -> device copy, kept across chunks
     with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool, \
             concurrent.futures.ThreadPoolExecutor(max_workers=1) as fin_pool:
-        fins = []
+        fins = []  # (chunk, its timer, its finalize future)
         for chunk in plan.chunks:
             t0 = time.time()
-            c_imgs = sorted({ijobs[j][0] for j in chunk})
-            for stale in [i for i in dev_cache if i not in c_imgs]:
-                del dev_cache[stale]
-            for i in c_imgs:
-                if i not in dev_cache:
-                    im = uniq[i]
-                    if dims[i] != (H, W):
-                        im = _pad_to_bucket(im, fspec.D, H, W)
-                    dev_cache[i] = put_image(im, device)
-            base_futs = [
-                pool.submit(lambda i=ijobs[j][0], K=ijobs[j][1].K:
-                            encode_base(_msb_plane(uniq[i], K), cfg0.base_codec))
-                for j in chunk
-            ]
-            result = fit_rate_experts(
-                tuple(dev_cache[i] for i in c_imgs), [ijobs[j][1].K for j in chunk],
-                tile_generator(gen_seed, 0), fspec, cfg0.model, cfg0.train, H, W, C,
-                tap_dtypes=[plan.dtypes[j] for j in chunk], staging=plan.staging,
-                img_of=[c_imgs.index(ijobs[j][0]) for j in chunk],
-                hws=[dims[ijobs[j][0]] for j in chunk] if needs_hws else None,
-                device=device,
-            )
+            timer = PhaseTimer()  # the phases `encode_rate_points` records
+            with timer.phase("dispatch"):
+                c_imgs = sorted({ijobs[j][0] for j in chunk})
+                for stale in [i for i in dev_cache if i not in c_imgs]:
+                    del dev_cache[stale]
+                for i in c_imgs:
+                    if i not in dev_cache:
+                        im = uniq[i]
+                        if dims[i] != (H, W):
+                            im = _pad_to_bucket(im, fspec.D, H, W)
+                        dev_cache[i] = put_image(im, device)
+                base_futs = [
+                    pool.submit(lambda i=ijobs[j][0], K=ijobs[j][1].K:
+                                encode_base(_msb_plane(uniq[i], K), cfg0.base_codec))
+                    for j in chunk
+                ]
+                result = fit_rate_experts(
+                    tuple(dev_cache[i] for i in c_imgs), [ijobs[j][1].K for j in chunk],
+                    tile_generator(gen_seed, 0), fspec, cfg0.model, cfg0.train, H, W, C,
+                    tap_dtypes=[plan.dtypes[j] for j in chunk], staging=plan.staging,
+                    img_of=[c_imgs.index(ijobs[j][0]) for j in chunk],
+                    hws=[dims[ijobs[j][0]] for j in chunk] if needs_hws else None,
+                    device=device, timer=timer,
+                )
             # the fit ended on its last eval's sync: fetch before the next
             # chunk's steps are queued behind these copies
-            flats = [flatten_params(unstack_params(result.params, e), fspec.feature_dim(C))
-                     for e in range(len(chunk))]
-            fins.append(fin_pool.submit(finalize, chunk, flats, result, base_futs, t0,
-                                        time.time() - t0))
-        for f in fins:
-            f.result()
+            with timer.phase("train_wait"):
+                flats = [flatten_params(unstack_params(result.params, e), fspec.feature_dim(C))
+                         for e in range(len(chunk))]
+            fins.append((chunk, timer, fin_pool.submit(finalize, chunk, flats, result,
+                                                       base_futs, t0, time.time() - t0)))
+        for chunk, timer, f in fins:
+            with timer.phase("finalize"):  # weight coding, base codec wait
+                f.result()
+            for j in chunk:  # the chunk's phases, shared by its points
+                results[j][1].phases = dict(timer.phases)
     return results  # type: ignore[return-value]
 
 
@@ -1243,7 +1262,8 @@ def decode_pipelined_iter(streams, mesh=None, ahead: int = 2, device=None):
             more = submit_next()
         while inflight:
             t0, pt, fut, b = inflight.popleft()
-            header, fins = fut.result()
+            with pt.phase("dispatch_wait"):
+                header, fins = fut.result()
             img = _finalize_decode(header, fins, pt)
             live_bytes -= b
             while more and len(inflight) <= ahead and live_bytes <= DECODE_AHEAD_BYTES:

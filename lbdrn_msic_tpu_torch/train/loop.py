@@ -33,6 +33,7 @@ the JAX package's init params and permutations instead.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
@@ -79,6 +80,7 @@ from lbdrn_msic_tpu_torch.ops.fused_step import (
     reference_train_step,
 )
 from lbdrn_msic_tpu_torch.parallel.distributed import collect
+from lbdrn_msic_tpu_torch.utils.profiling import NoTimer, PhaseTimer
 
 # the staged batches of one multi-step chunk stay under this many bytes
 # (the opt-in `multi_k` path only, which no codec entry point sets)
@@ -302,6 +304,7 @@ def fit(
     hw: Optional[Tuple[int, int]] = None,
     device=None,
     dp_group=None,
+    timer: Optional[PhaseTimer] = None,
 ) -> FitResult:
     """Overfit one network to one image tile.
 
@@ -352,6 +355,13 @@ def fit(
     bit-identical across ranks; the eval's row blocks are round-robined
     and their SSE summed.  The fused kernel does Adam inside its second
     pass, so `use_fused` and `multi_k` are off here.
+
+    `timer` (None: no spans) records the fit's phases: `stage` (entry up
+    to the first step: copies, labels, the staged features or taps,
+    buffers, init), `steps` (one span an epoch: its batches, their
+    staging and the step calls issued), `eval` (one span an eval: its
+    issue and the sync that reads its MSE) and `eval_device` (the eval's
+    device seconds, CUDA events; not on the CPU).
     """
     if staging not in ("cached", "full", "banded", "gather"):
         raise ValueError(f"unknown staging mode {staging!r}")
@@ -366,7 +376,9 @@ def fit(
         dp, me = dist.get_world_size(dp_group), dist.get_rank(dp_group)
         use_fused, multi_k = False, None
         step_fn = functools.partial(_dp_step, group=dp_group)
-    with torch.no_grad():
+    span = timer if timer is not None else NoTimer()
+    with torch.no_grad(), contextlib.ExitStack() as in_stage:
+        in_stage.enter_context(span.phase("stage"))
         plane, plane_scale, labels = plane.to(dev), plane_scale.to(dev), labels.to(dev)
         dim_in = fspec.feature_dim(C)
         padded_in = pad_dim(dim_in)
@@ -457,34 +469,40 @@ def fit(
         best = params.map(torch.zeros_like)
         best_mse, best_epoch = np.float32(1e6), -1
         count = 0
+        in_stage.close()
         for epoch in range(tspec.epochs):
-            gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev, hw)
-            if k:
-                for s0, kc in _chunks(steps, k):
-                    stage(gi[s0 : s0 + kc].reshape(-1))
-                    fused_multi_step(params, m_state, v_state,
-                                     xbuf[: kc * bs].view(kc, bs, padded_in),
-                                     ybuf[: kc * bpg].view(kc, bs, C), masks[s0 : s0 + kc],
-                                     [schedule(count + s) for s in range(kc)], count + 1,
-                                     mspec, C, loss_out=step_losses[epoch, s0 : s0 + kc],
-                                     mm_dtype=mm_dtype)
-                    count += kc
-            else:
-                for s in range(steps):
-                    stage(gi[s, me * bpg_l : (me + 1) * bpg_l])
-                    step_fn(params, m_state, v_state, xbuf, ybuf.view(bs_l, C),
-                            masks[s, me * bs_l : (me + 1) * bs_l], schedule(count), count + 1,
-                            mspec, C, loss_out=step_losses[epoch, s], mm_dtype=mm_dtype)
-                    count += 1
+            with span.phase("steps"):
+                gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev, hw)
+                if k:
+                    for s0, kc in _chunks(steps, k):
+                        stage(gi[s0 : s0 + kc].reshape(-1))
+                        fused_multi_step(params, m_state, v_state,
+                                         xbuf[: kc * bs].view(kc, bs, padded_in),
+                                         ybuf[: kc * bpg].view(kc, bs, C), masks[s0 : s0 + kc],
+                                         [schedule(count + s) for s in range(kc)], count + 1,
+                                         mspec, C, loss_out=step_losses[epoch, s0 : s0 + kc],
+                                         mm_dtype=mm_dtype)
+                        count += kc
+                else:
+                    for s in range(steps):
+                        stage(gi[s, me * bpg_l : (me + 1) * bpg_l])
+                        step_fn(params, m_state, v_state, xbuf, ybuf.view(bs_l, C),
+                                masks[s, me * bs_l : (me + 1) * bs_l], schedule(count),
+                                count + 1, mspec, C, loss_out=step_losses[epoch, s],
+                                mm_dtype=mm_dtype)
+                        count += 1
 
             if tspec.epochs == 1:
                 best = params.map(torch.clone)
                 best_mse, best_epoch = float(step_losses[0].mean()), 1
             elif (epoch + 1) % min(tspec.val_every, tspec.epochs) == 0:
-                mse = float(blocks_mse(params, x_rows,
-                                       lambda r0: y_all[r0 * W : (r0 + block_rows) * W],
-                                       mspec, H, W, C, block_rows, fast_act=use_fused, hw=hw,
-                                       dp_group=dp_group))
+                with span.phase("eval"), span.device_phase("eval_device", dev) as stop:
+                    sse = blocks_mse(params, x_rows,
+                                     lambda r0: y_all[r0 * W : (r0 + block_rows) * W],
+                                     mspec, H, W, C, block_rows, fast_act=use_fused, hw=hw,
+                                     dp_group=dp_group)
+                    stop()
+                    mse = float(sse)
                 if mse < best_mse:  # strict improvement, one sync per epoch
                     best = params.map(torch.clone)
                     best_mse, best_epoch = mse, epoch + 1
@@ -559,6 +577,7 @@ def fit_rate_experts(
     init: Optional[SirenParams] = None,
     perms: Optional[Sequence[np.ndarray]] = None,
     device=None,
+    timer: Optional[PhaseTimer] = None,
 ) -> FitResult:
     """Train one network per (image, rate point), all E = len(Ks) experts
     together.
@@ -602,7 +621,8 @@ def fit_rate_experts(
     expert per `fused_expert_multi_step` call (kernel K4), each epoch split
     by `_chunks`, the chunk's batches staged at once in (k, E, bs,
     padded_in); the result is the per-step fit's.  `mm_dtype` as for
-    `fit`: the fused expert steps' product operands.
+    `fit`: the fused expert steps' product operands.  `timer` as for `fit`:
+    `stage`, `steps`, and `eval` / `eval_device` once per expert eval.
 
     Returns a FitResult whose fields carry a leading expert axis.
     """
@@ -632,7 +652,9 @@ def fit_rate_experts(
             raise ValueError(f"hws has {len(hws)} entries for {E} experts")
         if all(h is None for h in hws):
             hws = None
-    with torch.no_grad():
+    span = timer if timer is not None else NoTimer()
+    with torch.no_grad(), contextlib.ExitStack() as in_stage:
+        in_stage.enter_context(span.phase("stage"))
         dev_imgs = {i: imgs[i].to(dev, torch.int32) for i in used}
         dim_in = fspec.feature_dim(C)
         padded_in = pad_dim(dim_in)
@@ -737,25 +759,27 @@ def fit_rate_experts(
         best = params.map(torch.zeros_like)
         best_mse, best_epoch = [np.float32(1e6)] * E, [-1] * E
         count = 0
+        in_stage.close()
         for epoch in range(tspec.epochs):
-            gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev, hws=hws)
-            if k:
-                for s0, kc in _chunks(steps, k):
-                    stage(gi[s0 : s0 + kc].reshape(-1), kc)
-                    fused_expert_multi_step(params, m_state, v_state, xbuf[:kc], ybuf[:kc],
-                                            masks[s0 : s0 + kc],
-                                            [schedule(count + s) for s in range(kc)],
-                                            count + 1, mspec, C,
-                                            loss_out=losses[epoch, s0 : s0 + kc],
-                                            mm_dtype=mm_dtype)
-                    count += kc
-            else:
-                for s in range(steps):
-                    stage(gi[s], 1)
-                    step_fn(params, m_state, v_state, xbuf[0], ybuf[0], masks[s],
-                            schedule(count), count + 1, mspec, C, loss_out=losses[epoch, s],
-                            mm_dtype=mm_dtype)
-                    count += 1
+            with span.phase("steps"):
+                gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev, hws=hws)
+                if k:
+                    for s0, kc in _chunks(steps, k):
+                        stage(gi[s0 : s0 + kc].reshape(-1), kc)
+                        fused_expert_multi_step(params, m_state, v_state, xbuf[:kc], ybuf[:kc],
+                                                masks[s0 : s0 + kc],
+                                                [schedule(count + s) for s in range(kc)],
+                                                count + 1, mspec, C,
+                                                loss_out=losses[epoch, s0 : s0 + kc],
+                                                mm_dtype=mm_dtype)
+                        count += kc
+                else:
+                    for s in range(steps):
+                        stage(gi[s], 1)
+                        step_fn(params, m_state, v_state, xbuf[0], ybuf[0], masks[s],
+                                schedule(count), count + 1, mspec, C,
+                                loss_out=losses[epoch, s], mm_dtype=mm_dtype)
+                        count += 1
 
             if tspec.epochs == 1:
                 best = params.map(torch.clone)
@@ -763,10 +787,13 @@ def fit_rate_experts(
                 best_epoch = [1] * E
             elif (epoch + 1) % min(tspec.val_every, tspec.epochs) == 0:
                 for e in range(E):
-                    mse = float(blocks_mse(
-                        unstack_params(params, e), lambda r0: x_rows(e, r0),
-                        lambda r0: y_rows(e, r0), mspec, H, W, C, block_rows,
-                        fast_act=use_fused, hw=hws[e] if hws is not None else None))
+                    with span.phase("eval"), span.device_phase("eval_device", dev) as stop:
+                        sse = blocks_mse(
+                            unstack_params(params, e), lambda r0: x_rows(e, r0),
+                            lambda r0: y_rows(e, r0), mspec, H, W, C, block_rows,
+                            fast_act=use_fused, hw=hws[e] if hws is not None else None)
+                        stop()
+                        mse = float(sse)
                     if mse < best_mse[e]:  # strict improvement, per expert
                         for b_, p_ in zip(best.leaves(), params.leaves()):
                             b_[e].copy_(p_[e])

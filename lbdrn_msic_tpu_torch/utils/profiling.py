@@ -1,10 +1,15 @@
 """Profiling and phase timing.
 
-- `PhaseTimer`: named host-side phase accounting (feature staging, train
-  loop, host codecs, transfers) surfaced in EncodeStats/DecodeStats;
+- `PhaseTimer`: named host spans (`phase`, on a monotonic clock) and
+  device spans (`device_phase`, CUDA events), surfaced as
+  `EncodeStats.phases` / `DecodeStats.phases`: the codec's dispatch,
+  device waits, host codecs and decode assembly, and inside `dispatch` the
+  fit's staging, step issue and evals (codec.py names each).  While a
+  torch profiler runs, every host span is also a `phase:<name>` range on
+  the profiler's clock;
 - `trace()`: a context manager around `torch.profiler` that writes a
-  Chrome trace of the region (host ops and, on a CUDA run, the device's
-  kernels and copies) into a directory.
+  Chrome trace of the region (host ops of every thread and, on a CUDA
+  run, the device's kernels and copies) into a directory.
 """
 
 from __future__ import annotations
@@ -12,7 +17,9 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator
+
+import torch
 
 
 class PhaseTimer:
@@ -21,31 +28,64 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
-        t0 = time.time()
+        """Adds the block's host seconds to `phases[name]`; while a torch
+        profiler is enabled, the block is also the range `phase:<name>`."""
+        rf = None
+        if torch.autograd.profiler._is_profiler_enabled:  # a global flag, set on any thread
+            rf = torch.profiler.record_function("phase:" + name)
+            rf.__enter__()
+        t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.phases[name] = self.phases.get(name, 0.0) + (time.time() - t0)
+            self.phases[name] = self.phases.get(name, 0.0) + (time.perf_counter() - t0)
+            if rf is not None:
+                rf.__exit__(None, None, None)
 
-    def report(self) -> str:
-        total = sum(self.phases.values())
-        parts = [f"{k}={v:.3f}s" for k, v in sorted(self.phases.items())]
-        return f"total={total:.3f}s  " + " ".join(parts)
+    @contextlib.contextmanager
+    def device_phase(self, name: str, device: torch.device) -> Iterator[Callable[[], None]]:
+        """Adds the device seconds of the block's work on the current CUDA
+        stream to `phases[name]`, adding no synchronisation where the block
+        ends in one: an event is recorded on entry, and one where the block
+        calls the `stop()` it is given, after its last operation and before
+        the sync that ends the block; on exit the end event is waited for
+        (already passed after that sync) and the two are read.  Off CUDA it
+        records nothing."""
+        if device.type != "cuda":
+            yield lambda: None
+            return
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        yield end.record
+        end.synchronize()
+        self.phases[name] = self.phases.get(name, 0.0) + start.elapsed_time(end) / 1e3
+
+
+class NoTimer:
+    """A `PhaseTimer` stand-in that records nothing."""
+
+    def phase(self, name: str):
+        return contextlib.nullcontext()
+
+    def device_phase(self, name: str, device: torch.device):
+        return contextlib.nullcontext(lambda: None)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
-    """Capture a torch.profiler trace of the region (CPU activity, and CUDA
-    activity where a card is present) and write it to
+    """Capture a torch.profiler trace of the region (CPU activity of every
+    thread, the decode's dispatch worker and the base codecs' pools too,
+    and CUDA activity where a card is present) and write it to
     `log_dir/trace_<pid>_<ms>.json`, a Chrome trace that Perfetto or
     chrome://tracing opens."""
-    import torch
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts,
+                 experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
         try:
             yield
         finally:

@@ -35,6 +35,12 @@ FLAGS = ["--k-min", "4", "--k-max", "5", "-e", "1", "-bs", "1024", "--base-codec
 CPU = ["--device", "cpu"]
 MODES = {"per_job": [], "pipeline": ["--pipeline"], "batch_experts": ["--batch-experts"]}
 RUN = "_r1_K{}_bc64_nl2_D2_prec16_lr0.001_bs1024_e1"
+# the port's spans inside `dispatch` (`train/loop.py`), which the JAX
+# package does not record; at one epoch there is no eval
+FIT_PHASES = ("stage", "steps", "eval", "eval_device")
+# a dataset chunk's phases (`codec._encode_job_group`), which the JAX
+# package's chunk path does not record
+CHUNK_PHASES = ["dispatch", "finalize", "train_wait"]
 
 
 @pytest.fixture(scope="module")
@@ -153,12 +159,33 @@ def _log_keys(path, out):
     return keys
 
 
+def _as_jax_phases(keys, chunk):
+    """The port's encode log keys as the JAX package's log has them: the
+    `phases:` line names the fit's `stage` and `steps` and, but for those
+    and the other FIT_PHASES, the JAX package's phases; a dataset chunk's
+    line, which the JAX package does not write, names CHUNK_PHASES and the
+    fit's, and is dropped."""
+    out = []
+    for k in keys:
+        if k.startswith("phases: "):
+            names = [p.split("=")[0] for p in k.split()[1:]]
+            assert {"stage", "steps"} <= set(names), k
+            kept = [p for p in k.split()[1:] if p.split("=")[0] not in FIT_PHASES]
+            if chunk:
+                assert [p.split("=")[0] for p in kept] == CHUNK_PHASES, k
+                continue
+            k = " ".join(["phases:"] + kept)
+        out.append(k)
+    return out
+
+
 @pytest.mark.parametrize("mode", list(MODES))
 def test_sweep_dirs_and_logs_match_jax(mode, tifs, tmp_path, capsys):
     """tests/test_cli.py:46-135 on both packages, `--hosts 2 --host-id 1`:
     the same run directories (the host's share: (path, K) jobs 1 and 3
     per job, the second image with experts), the same files in each, the
-    same log lines up to numbers, and the same sweep messages."""
+    same log lines up to numbers (the port's phases line as
+    `_as_jax_phases` reads it), and the same sweep messages."""
     extra = MODES[mode] + ["--hosts", "2", "--host-id", "1"]
     jout, pout = str(tmp_path / "jax"), str(tmp_path / "port")
     assert jsweep.main(["-i", *tifs, "-o", jout, *FLAGS, *extra]) == 0
@@ -176,8 +203,10 @@ def test_sweep_dirs_and_logs_match_jax(mode, tifs, tmp_path, capsys):
         assert sorted(os.listdir(os.path.join(pout, run))) == \
             sorted(os.listdir(os.path.join(jout, run)))
         for log in ("encode.txt", "decode.txt"):
-            assert _log_keys(os.path.join(pout, run, log), pout) == \
-                _log_keys(os.path.join(jout, run, log), jout), (run, log)
+            keys = _log_keys(os.path.join(pout, run, log), pout)
+            if log == "encode.txt":
+                keys = _as_jax_phases(keys, chunk=mode == "batch_experts")
+            assert keys == _log_keys(os.path.join(jout, run, log), jout), (run, log)
 
 
 def test_sweep_refusals(tifs, tmp_path, monkeypatch):
