@@ -45,9 +45,21 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            bench widths and each expert-compatible ABLATION_WIDTHS shape:
            against the plain step, bit for bit K1 per expert, time, bound
            and plain time
+  kernels_eval  K6, the fast-act eval's fused forward and masked SSE (same
+           source), at the benchmark cells' eval widths (C = 4, dim_in 100,
+           F_pad 128; C = 8, dim_in 200, F_pad 256) over a whole 2048^2
+           scene (32 row blocks of 64 rows): against its plain version
+           (SSE within 1e-5 relative, whole and under a bucket's hw mask),
+           two evals bit for bit, one launch a block; a GF-2-like ragged
+           block (16 rows of 7,815) at bc 256, weights from global memory,
+           against the plain version; the whole eval's CUDA-event ms behind
+           a GPU sleep beside its bound (the frozen forward_ops over the
+           f32 peak) and the plain eval's ms; each of its two kernels'
+           device ms an eval from a profiler window (`passes`)
   encode   2048x2048x4 12-bit synthetic scene, seed 42, K=5, g=8, e=10,
            base codec lpc: one warm and three timed encodes, each of which
            must launch K1 exactly epochs x steps = 5120 times (and K2 never)
+           and K6 exactly epochs x row blocks = 320 times
   determinism  the timed encodes' streams are byte-identical
   decode   three timed decodes (the base's four row chunks through the
            streamed lpc path, "dispatch_pipelined"), interleaved with three
@@ -546,6 +558,118 @@ def phase_kernels(card: str):
           "coords_f256": {k: coords[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
           "wfi_c8_f256": {k: wfi[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
           "ablation_widths": widths, "card": card})
+    return kernel
+
+
+# the eval's widths in the benchmark's cells: (case, C, dim_in), the pms4
+# cells' (F_pad 128) and the wfi8 cells' (F_pad 256)
+EVAL_SHAPES = (("pms4", 4, 100), ("wfi8", 8, 200))
+
+
+def phase_eval_kernel(card: str):
+    import torch
+
+    # the bound's count: the one `eval_roofline` and `encode_mfu` read
+    from benchmark.reference.frozen import forward_ops
+    from lbdrn_msic_tpu_torch.core.config import ModelSpec
+    from lbdrn_msic_tpu_torch.features.engine import feature_block_rows
+    from lbdrn_msic_tpu_torch.models.siren import init_params, pad_dim
+    from lbdrn_msic_tpu_torch.ops import fused_step as fs
+    from lbdrn_msic_tpu_torch.train import loop
+
+    fs._kernel_lib()  # builds or loads the library, and reads the shared-memory opt-in
+    dev = torch.device("cuda")
+    mspec = ModelSpec()
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def scene(n, C, dim_in):
+        x = torch.zeros((n, pad_dim(dim_in)), dtype=torch.float32, device=dev)
+        x[:, :dim_in].uniform_(-1, 1, generator=gen)
+        return x, torch.rand((n, C), dtype=torch.float32, device=dev, generator=gen)
+
+    def whole(fn, params, x, y, spec, H, W, R, dim_in, hw=None):
+        """One eval of the scene, block by block through fn (the kernel's
+        wrapper or its plain version), as `blocks_mse` makes it: the SSE."""
+        out = torch.zeros((), dtype=torch.float32, device=dev)
+        for b in range(-(-H // R)):
+            if hw is not None and b * R >= hw[0]:
+                break
+            r0 = min(b * R, H - R)
+            rows, cols = (R, W) if hw is None else (min(R, hw[0] - r0), hw[1])
+            fn(params, x[r0 * W : (r0 + R) * W], y[r0 * W : (r0 + R) * W], spec, W,
+               b * R - r0, rows, cols, out=out, dim_in=dim_in)
+        return out
+
+    H = W = 2048
+    R = feature_block_rows(H, W)
+    blocks = -(-H // R)
+    cases, entries = [], []
+    for name, C, dim_in in EVAL_SHAPES:
+        params = init_params(torch.Generator().manual_seed(1), dim_in, C, mspec,
+                             pad_input_to=pad_dim(dim_in), device=dev)
+        x, y = scene(H * W, C, dim_in)
+        row = {"case": name, "C": C, "dim_in": dim_in, "F_pad": pad_dim(dim_in),
+               "block_rows": R, "blocks": blocks,
+               "rows_a_tile_and_staged": list(fs.cta_layout(
+                   [dim_in, 64, 64, C], fs._smem_optin, fs.eval_smem_bytes, fs.EVAL_ROWS))}
+        for hw in (None, (2000, 1900)):
+            n0 = fs.fused_eval_sse.launches
+            a = whole(fs.fused_eval_sse, params, x, y, mspec, H, W, R, dim_in, hw)
+            b = whole(fs.fused_eval_sse, params, x, y, mspec, H, W, R, dim_in, hw)
+            plain = whole(fs.fused_eval_sse_plain, params, x, y, mspec, H, W, R, dim_in, hw)
+            torch.cuda.synchronize()
+            assert fs.fused_eval_sse.launches - n0 == 2 * -(-(H if hw is None else hw[0]) // R)
+            assert torch.equal(a, b), (name, hw, float(a), float(b))
+            gap = abs(float(a) - float(plain)) / float(plain)
+            assert gap <= 1e-5, (name, hw, float(a), float(plain))
+            row["sse_gap" if hw is None else "sse_gap_hw_2000x1900"] = gap
+        ops = forward_ops(H * W, [dim_in, 64, 64, C])
+        nbytes = 4 * H * W * (dim_in + C)
+        entry = kernel_entry(
+            "fused_eval_sse", "none (the JAX package's eval is plain XLA: "
+            "lbdrn_msic_tpu/train/loop.py::dataset_mse)", card, ops, nbytes,
+            cuda_ms(lambda: whole(fs.fused_eval_sse, params, x, y, mspec, H, W, R, dim_in),
+                    10, warm=2),
+            cuda_ms(lambda: whole(fs.fused_eval_sse_plain, params, x, y, mspec, H, W, R,
+                                  dim_in), 2, warm=1),
+            max(row["sse_gap"], row["sse_gap_hw_2000x1900"]))
+        # device ms an eval of each of its two kernels, by name (pass 2 follows
+        # pass 1 in stream order: its span is its own)
+        passes = pass_times(
+            lambda: whole(fs.fused_eval_sse, params, x, y, mspec, H, W, R, dim_in), 5)
+        pass1 = next(k for k in passes if k.startswith("eval_sse<"))
+        assert passes[pass1]["launches_per_call"] == blocks, passes
+        assert passes["eval_sse_sum"]["launches_per_call"] == blocks, passes
+        row.update({k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                   ops=ops, roofline_pct=100 * entry["bound_ms"] / entry["ms"], passes=passes,
+                   eval_sse_sum_us_a_launch=1e3 * passes["eval_sse_sum"]["ms_per_call"] / blocks)
+        cases.append(row)
+        entries.append(entry)
+        del x, y
+
+    # a GF-2-like block: 16 rows of 7,815 (no whole tile's multiple) at bc
+    # 256, whose weights the kernel reads from global memory
+    spec = ModelSpec(256, 2)
+    Wg, Rg = 7815, 16
+    params = init_params(torch.Generator().manual_seed(2), 100, 4, spec, pad_input_to=128,
+                         device=dev)
+    x, y = scene(Rg * Wg, 4, 100)
+    a = fs.fused_eval_sse(params, x, y, spec, Wg, 3, dim_in=100)
+    b = fs.fused_eval_sse(params, x, y, spec, Wg, 3, dim_in=100)
+    plain = fs.fused_eval_sse_plain(params, x, y, spec, Wg, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    gap = abs(float(a) - float(plain)) / float(plain)
+    assert gap <= 1e-5, (float(a), float(plain))
+    gf2 = {"case": "gf2_bc256", "W": Wg, "block_rows": Rg, "skip": 3, "sse_gap": gap,
+           "rows_a_tile_and_staged": list(fs.cta_layout([100, 256, 256, 4], fs._smem_optin,
+                                                         fs.eval_smem_bytes, fs.EVAL_ROWS))}
+    emit({"phase": "kernels_eval", "cases": cases, "gf2_global_weights": gf2, "card": card})
+    kernel = entries[0]
+    # its error: the largest relative SSE gap to the plain version
+    kernel["max_abs_err"] = max(max(r["sse_gap"], r["sse_gap_hw_2000x1900"]) for r in cases)
+    kernel["max_abs_err_is"] = "relative SSE gap"
+    kernel["wfi8"] = {k: entries[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
     return kernel
 
 
@@ -1383,14 +1507,16 @@ def plain_decode_path():
     return replaced(reconstruct, "dispatch_streamed_lpc", lambda *a, **k: None)
 
 
-def phase_codec(profile: bool, kernel):
+def phase_codec(profile: bool, kernel, eval_kernel=None):
     import numpy as np
     import torch
 
     from lbdrn_msic_tpu_torch.codec import decode_stream, encode_image
     from lbdrn_msic_tpu_torch.core.config import CodecConfig, TrainSpec
     from lbdrn_msic_tpu_torch.eval.metrics import psnr
-    from lbdrn_msic_tpu_torch.ops.fused_step import fused_expert_step, fused_train_step
+    from lbdrn_msic_tpu_torch.features.engine import feature_block_rows
+    from lbdrn_msic_tpu_torch.ops.fused_step import (
+        fused_eval_sse, fused_expert_step, fused_train_step)
     from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
     H = W = 2048
@@ -1398,28 +1524,34 @@ def phase_codec(profile: bool, kernel):
     img = synth_scene(H, W, channels=4, effective_bits=12, seed=42)
     cfg = CodecConfig(K=5, base_codec="lpc", train=TrainSpec(sample_granule=8, epochs=10))
     n_steps = cfg.train.epochs * -(-(-(-H * W // 8)) // (cfg.train.batch_size // 8))
+    n_evals = cfg.train.epochs * -(-H // feature_block_rows(H, W))
 
     t0 = time.time()
     warm_stream, _ = encode_image(img, cfg)
     warm_s = time.time() - t0
     streams, secs, launches = [], [], []
     for _ in range(3):
-        fused_train_step.launches = fused_expert_step.launches = 0
+        fused_train_step.launches = fused_expert_step.launches = fused_eval_sse.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
         stream, stats = encode_image(img, cfg)
         secs.append(time.time() - t0)
         launches.append(fused_train_step.launches)
         assert fused_expert_step.launches == 0, fused_expert_step.launches
+        assert fused_eval_sse.launches == n_evals, (fused_eval_sse.launches, n_evals)
         streams.append(stream)
     assert launches == [n_steps] * 3, (launches, n_steps)
     kernel["launches"] = launches[0]
     kernel["launches_by_path"] = {"encode": launches[0]}
+    if eval_kernel is not None:
+        eval_kernel["launches"] = n_evals
+        eval_kernel["launches_by_path"] = {"encode": n_evals}
     emit({"phase": "encode", "shape": [4, H, W], "warm_s": warm_s, "seconds": secs,
           "mpx_s": [mpx / s for s in secs], "phases": stats.phases,
           "bpsp": stats.bpsp, "best_epoch": stats.tiles[0].best_epoch,
           "best_mse": stats.tiles[0].best_mse, "launches": launches,
-          "expected_launches": n_steps, "sha256": hashlib.sha256(streams[0]).hexdigest()})
+          "expected_launches": n_steps, "eval_launches": n_evals,
+          "sha256": hashlib.sha256(streams[0]).hexdigest()})
 
     if profile:
         phase_profile("encode", lambda: encode_image(img, cfg), secs)
@@ -2119,7 +2251,9 @@ def phase_dataset(profile: bool, k1, k2, sweep_solos=None):
         assert rec.shape == img.shape and np.array_equal(rec >> K, img >> K), name
         want = "coords" if name.startswith("d_") else "dispatch_pipelined"
         assert (want == "dispatch_pipelined") == ("dispatch_pipelined" in st.phases), (name, st)
-        assert ref_st.phases.keys() == st.phases.keys(), name
+        # the pipelined path's own phase: the caller's wait on the dispatch worker
+        assert "dispatch_wait" in st.phases, (name, st)
+        assert ref_st.phases.keys() == st.phases.keys() - {"dispatch_wait"}, name
         if want == "dispatch_pipelined":  # the streamed lpc path against the plain one
             with plain_decode_path():
                 t0 = time.time()
@@ -2964,12 +3098,13 @@ def main():
               "script_seconds": time.time() - t_script})
         return
     k1 = phase_kernels(card)
+    k6 = phase_eval_kernel(card)
     k2 = phase_expert_kernels(card)
     k3, k4 = phase_multi_kernels(card)
     phase_mm_dtype(card, fits=args.only != "kernels")
     k5 = phase_kernel_prof(card)
     if args.only != "kernels":
-        encoded = phase_codec(args.profile, k1)
+        encoded = phase_codec(args.profile, k1, k6)
         sweep_solos, sweep_streams = phase_sweep(args.profile, k2)
         phase_rd(encoded, phase_bench(k1, k2, encoded["psnr_db"]))
         multik = phase_multi_k(card, args.profile, k3, k4)
@@ -2983,7 +3118,7 @@ def main():
         phase_mesh(card, k2, sweep_streams, encoded)
     emit({"phase": "total", "script_seconds": time.time() - t_script,
           "phase_seconds": PHASE_SECONDS})
-    emit({"kernels": [k1, k2, k3, k4, *k5]})
+    emit({"kernels": [k1, k2, k3, k4, k6, *k5]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
 // Fused SIREN training steps on Hopper (sm_90a), CUDA C++: one network
 // (K1), E independent networks in one launch pair (K2), and k sequential
-// steps of one (K3) or E (K4) networks in one persistent launch.
+// steps of one (K3) or E (K4) networks in one persistent launch; and the
+// fast-act eval's masked SSE of one row block (K6, at the end of the file).
 //
 // Replaces four Pallas TPU kernels of lbdrn_msic_tpu/ops/fused_step.py:
 //   K1 fused_train_step  (body `_kernel`, with `_fwd_bwd`, `_adam`, `sincos`)
@@ -479,6 +480,240 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+
+// ------------------------------------------------------------------- K6
+//
+// K6 `fused_eval_sse` (ops/fused_step.py): the masked SSE of one row block of
+// the fast-act eval that picks a fit's checkpoint (train/loop.py::blocks_mse).
+// It replaces no TPU kernel: the JAX package's eval is plain XLA
+// (lbdrn_msic_tpu/train/loop.py::dataset_mse).  It was added because the
+// same eval in PyTorch runs ~80 kernels a block (a cuBLAS product, the bias
+// and w0 and ~20 elementwise passes of `sincos` a layer, the sigmoid, the
+// error, its sum), each a pass over the block's activations in HBM: ~72-90
+// ms a 2048^2 eval on an H100 against a bound of 1.45 ms (C = 4) or 2.28 ms
+// (C = 8).  What bounds it: the forward's FFMA work, 2 x the products' MACs
+// at the live input width plus the hidden activations' sin (~23k operations
+// a pixel at the bench widths); the block's x and labels are read once
+// (~0.5 ms an eval at C = 4, ~1 ms at C = 8, at 3.35 TB/s), so it is
+// compute-bound.  Its design:
+// - Persistent CTAs, one an SM (min(tiles, resident CTAs)), each walking
+//   the block's T-row tiles blockIdx.x, + gridDim.x, ...; T by
+//   K1's rule (ops/fused_step.py::cta_layout) at the eval's carve-up
+//   (`eval_smem_bytes`), which keeps no gradients, W^T or cos caches: the most rows up
+//   to 128 whose buffers fit, 128 at dim_in 100 and C = 4, 64 at dim_in 200
+//   and C = 8; weights read from global memory where they do not fit beside
+//   8 rows (the second instantiation, as K1's).
+// - The weights and biases staged once a CTA by TMA bulk copies (barrier
+//   0).  Layer 0 reads W0's first dims[0] rows, the live input width: its
+//   other rows are the input's zero padding, so x's columns past it are
+//   never copied or multiplied.
+// - The x rows and labels of a tile in a ring of two stages, each on its
+//   own mbarrier: tile i + 2's bulk copies start as soon as tile i is
+//   done with its stage, so they land while tile i + 1 runs.  Arrays that
+//   are not 16-byte multiples go by cp.async at the tile's start instead.
+// - Activations only in shared memory; products on FFMA (`mmv`, 8 x 4
+//   outputs a thread where a tile has a CTA's worth of them: a quarter
+//   fewer operand reads a FMA than 4 x 4); the hidden sin from K1's
+//   `sincos_poly`, the sigmoid head as K1 forms it, every live (p - y)^2
+//   added into a per-thread sum in a fixed order.
+// - The sum: per thread, per CTA (`block_sum`) into a partial, then pass 2
+//   (`eval_sse_sum`, one warp) adds the partials in a fixed order and that
+//   sum into the 0-d output.  No float atomics, and the grid is fixed by the
+//   device and the shapes, so two calls on the same inputs give the same
+//   bits.  Pass 2 follows pass 1 in stream order, not as a programmatic
+//   dependent: that would save ~1 us of a ~170 us block, and its span would
+//   open at pass 1's launch, so a trace's sum of kernel spans would count
+//   pass 1 twice.
+
+// The eval's product: 8 x 4 outputs a thread where there are a CTA's worth
+// of such tiles, else `mm`'s choice.
+template <int kBSrc, class EP>
+__device__ __forceinline__ void mm_eval(int M, int N, int K, const float* A, int lda,
+                                        const float* B, int ldb, EP ep) {
+  if (((M + 7) >> 3) * ((N + 3) >> 2) >= THREADS)
+    mmv<false, false, 8, kBSrc>(M, N, K, A, lda, B, ldb, ep);
+  else
+    mm<false, false, kBSrc>(M, N, K, A, lda, B, ldb, ep);
+}
+
+// K6 pass 1.  a: the network (w, b, w0, L; dims[0] the live input width
+// K0, at most F; rows the tile height T; stage_w).  x: the block's (n, F)
+// inputs, y its (n, C) labels; live are rows lo .. lo + n_live - 1, and of
+// each W-wide image row the columns below col_end.  partials: a float a CTA.
+template <bool kStageW>
+__global__ void __launch_bounds__(THREADS, 1)
+    eval_sse(StepArgs a, const float* x, int F, const float* y, int W, int lo, int n_live,
+             int col_end, float* partials) {
+  extern __shared__ __align__(16) float smem[];
+  const int L = a.L, T = a.rows, K0 = a.dims[0], C = a.dims[L];
+  const int n_tiles = (n_live + T - 1) / T;
+  constexpr int kBSrc = kStageW ? 0 : 1;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // the weights; ring stages 0, 1
+
+  // shared-memory carve-up (floats; ops/fused_step.py::eval_smem_bytes sums the same)
+  int ldh = 4;
+  for (int l = 1; l < L; ++l) ldh = max(ldh, row_stride(a.dims[l]));
+  const int ldx = row_stride(K0);
+  float* sums = smem + 8;
+  float* red = sums + THREADS;
+  float* wsm = red + THREADS;  // [weights and biases,] hidden activations, ring
+  float* hbuf = wsm;
+  if (kStageW)
+    for (int l = 0; l < L; ++l) hbuf += round4(a.dims[l] * a.dims[l + 1]) + round4(a.dims[l + 1]);
+  float* ring = hbuf + min(L - 1, 2) * T * ldh;
+  const int stage = T * ldx + round4(T * C);
+  auto wl = [&](int l) -> float* {  // layer l's staged weight, then its bias
+    float* p = wsm;
+    for (int q = 0; q < l; ++q) p += round4(a.dims[q] * a.dims[q + 1]) + round4(a.dims[q + 1]);
+    return p;
+  };
+  auto xs = [&](int s) { return ring + s * stage; };
+  auto ys = [&](int s) { return ring + s * stage + T * ldx; };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // ---- the weights, once a CTA (barrier 0)
+  if (kStageW) {
+    if (threadIdx.x == 0) {
+      uint32_t tx = 0;
+      for (int l = 0; l < L; ++l) {
+        const int din = a.dims[l], dout = a.dims[l + 1];
+        tx += bulk_bytes(wl(l), a.w[l], din * dout) +
+              bulk_bytes(wl(l) + round4(din * dout), a.b[l], dout);
+      }
+      mbar_arrive_tx(&bars[0], tx);
+      for (int l = 0; l < L; ++l) {
+        const int din = a.dims[l], dout = a.dims[l + 1];
+        float* wd = wl(l);
+        float* bd = wd + round4(din * dout);
+        const uint32_t nw = bulk_bytes(wd, a.w[l], din * dout), nb = bulk_bytes(bd, a.b[l], dout);
+        if (nw) bulk_copy(wd, a.w[l], nw, &bars[0]);
+        if (nb) bulk_copy(bd, a.b[l], nb, &bars[0]);
+      }
+    }
+    for (int l = 0; l < L; ++l) {
+      const int din = a.dims[l], dout = a.dims[l + 1];
+      copy_fallback(wl(l), a.w[l], din * dout);
+      copy_fallback(wl(l) + round4(din * dout), a.b[l], dout);
+    }
+  }
+
+  // ---- the ring: tile t's x rows (K0 floats each) and labels into stage s,
+  // started by warp 0; x goes by bulk copies when every row start is 16-byte
+  // aligned, the labels when their block is
+  const bool x_bulk = F % 4 == 0 && bulk_ok(xs(0), x + (size_t)lo * F, (size_t)K0 * 4);
+  auto fetch = [&](int t, int s) {
+    const int r0 = lo + t * T, nr = min(T, n_live - t * T);
+    const float* ysrc = y + (size_t)r0 * C;
+    if (threadIdx.x == 0) {
+      const uint32_t ny = bulk_bytes(ys(s), ysrc, nr * C);
+      mbar_arrive_tx(&bars[1 + s], (x_bulk ? (uint32_t)nr * K0 * 4 : 0u) + ny);
+      if (ny) bulk_copy(ys(s), ysrc, ny, &bars[1 + s]);
+    }
+    __syncwarp();
+    if (x_bulk)
+      for (int r = threadIdx.x; r < nr; r += 32)
+        bulk_copy(xs(s) + r * ldx, x + (size_t)(r0 + r) * F, K0 * 4, &bars[1 + s]);
+  };
+  if (threadIdx.x < 32)
+    for (int s = 0; s < 2 && (int)(blockIdx.x + s * gridDim.x) < n_tiles; ++s)
+      fetch(blockIdx.x + s * gridDim.x, s);
+  cp_async_wait_all();
+  __syncthreads();
+  if (kStageW) mbar_wait(&bars[0], 0);
+
+  float sse = 0.0f;
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    const int s = it & 1, r0 = t * T, nr = min(T, n_live - r0);
+    mbar_wait(&bars[1 + s], (it >> 1) & 1);
+    if (!x_bulk)
+      for (int i = threadIdx.x; i < nr * K0; i += blockDim.x) {
+        const int r = i / K0;
+        cp_async4(xs(s) + r * ldx + (i - r * K0), x + (size_t)(lo + r0 + r) * F + (i - r * K0));
+      }
+    copy_fallback(ys(s), y + (size_t)(lo + r0) * C, nr * C);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // ---- the hidden layers: sin(w0 (h W + b)), ping-pong between two buffers
+    const float* hin = xs(s);
+    int ldi = ldx;
+    for (int l = 0; l < L - 1; ++l) {
+      const int din = a.dims[l], dout = a.dims[l + 1];
+      const float* Wl = kStageW ? wl(l) : a.w[l];
+      const float* bias = kStageW ? wl(l) + round4(din * dout) : a.b[l];
+      float* hout = hbuf + (l & 1) * T * ldh;
+      const float w0 = a.w0[l];
+      mm_eval<kBSrc>(nr, dout, din, hin, ldi, Wl, dout, [&](int i, int j, float acc) {
+        const float u = __fmul_rn(w0, __fadd_rn(acc, bias[j]));
+        float sn, cs;
+        sincos_poly(u, &sn, &cs);
+        hout[i * ldh + j] = sn;
+      });
+      __syncthreads();
+      hin = hout;
+      ldi = ldh;
+    }
+
+    // ---- the sigmoid head and the live squared errors
+    {
+      const int din = a.dims[L - 1];
+      const float* Wl = kStageW ? wl(L - 1) : a.w[L - 1];
+      const float* bias = kStageW ? wl(L - 1) + round4(din * C) : a.b[L - 1];
+      const float* yt = ys(s);
+      const int g0 = lo + r0;  // the tile's first row in the block
+      mm_eval<kBSrc>(nr, C, din, hin, ldi, Wl, C, [&](int i, int j, float acc) {
+        const float z = __fadd_rn(acc, bias[j]);
+        const float p = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z)));
+        const float d = __fsub_rn(p, yt[i * C + j]);
+        if (col_end >= W || (g0 + i) % W < col_end) sse = __fadd_rn(sse, __fmul_rn(d, d));
+      });
+    }
+
+    // ---- stage s is free (its generic reads ordered before the next bulk
+    // copies into it): tile t + 2 gridDim.x goes there
+    fence_proxy_async();
+    __syncthreads();
+    const int tn = t + 2 * gridDim.x;
+    if (threadIdx.x < 32 && tn < n_tiles) fetch(tn, s);
+  }
+
+  sums[threadIdx.x] = sse;
+  const float total = block_sum(sums, THREADS, red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+}
+
+// K6 pass 2: one warp adds the n partials in a fixed order (lane-strided,
+// then a fixed tree) and that sum into *out.
+__global__ void __launch_bounds__(32) eval_sse_sum(const float* partials, int n, float* out) {
+  float s = 0.0f;
+  for (int i = threadIdx.x; i < n; i += 32) s = __fadd_rn(s, partials[i]);
+  for (int h = 16; h > 0; h >>= 1) s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, h));
+  if (threadIdx.x == 0) *out = __fadd_rn(*out, s);
+}
+
+using EvalPass1 = void (*)(StepArgs, const float*, int, const float*, int, int, int, int, float*);
+
+// K6's pass-1 instantiation for stage_w, opted into smem_bytes of dynamic
+// shared memory; 0 on success, else the CUDA error code.
+int eval_fn(int stage_w, int smem_bytes, EvalPass1* fn) {
+  static const EvalPass1 fns[2] = {eval_sse<false>, eval_sse<true>};
+  static int smem_set[2] = {0, 0};
+  const int inst = stage_w ? 1 : 0;
+  *fn = fns[inst];
+  if (smem_bytes > smem_set[inst]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        (const void*)fns[inst], cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    smem_set[inst] = smem_bytes;
+  }
+  return 0;
+}
 }  // namespace
 
 extern "C" {
@@ -586,6 +821,42 @@ int lbdrn_fused_multi_step(const StepArgs* args, int E, int k, const float* x,
                    &S,       &sched,   &loss, &bar};
   e = cudaLaunchCooperativeKernel(fn, dim3(n_blocks), dim3(THREADS), kargs, smem_bytes, s);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// K6: how many pass-1 CTAs of instantiation stage_w at smem_bytes are
+// resident at once on the current device (the persistent grid's cap), or
+// minus a CUDA error code.
+int lbdrn_eval_ctas(int stage_w, int smem_bytes) {
+  EvalPass1 fn;
+  int e = eval_fn(stage_w, smem_bytes, &fn);
+  if (e != 0) return -e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = (int)cudaGetDevice(&dev)) != 0) return -e;
+  if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0) return -e;
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)fn, THREADS,
+                                                         smem_bytes);
+  if (e != 0) return -e;
+  return per_sm * sms;
+}
+
+// One K6 launch pair: pass 1 over `grid` persistent CTAs, then pass 2.  args: the network (dims[0] the live input
+// width, rows the tile height, stage_w); x (n, F) and y (n, C); live rows
+// lo .. lo + n_live - 1, columns below col_end of each W; partials: grid
+// floats; out: the 0-d SSE the block's is added into.  Returns 0 on
+// success, else the CUDA error code of the refused launch or attribute.
+int lbdrn_fused_eval_sse(const StepArgs* args, const float* x, int F, const float* y, int W,
+                         int lo, int n_live, int col_end, float* partials, int grid,
+                         int smem_bytes, float* out, void* stream) {
+  EvalPass1 fn;
+  int e = eval_fn(args->stage_w, smem_bytes, &fn);
+  if (e != 0) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  StepArgs a = *args;
+  fn<<<grid, THREADS, smem_bytes, s>>>(a, x, F, y, W, lo, n_live, col_end, partials);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  eval_sse_sum<<<1, 32, 0, s>>>(partials, grid, out);
   return (int)cudaGetLastError();
 }
 

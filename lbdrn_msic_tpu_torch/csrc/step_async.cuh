@@ -141,19 +141,20 @@ __device__ __forceinline__ float4 round4_bf16(float4 v) {
 // k); true, a(i, k) = A[k * lda + i] (read as float4 along i).  B is
 // row-major, b(k, j) = B[k * ldb + j], in shared memory (kBSrc 0) or
 // global memory (1; 2 through L2 only, for data the launch rewrites), read
-// as float4 along j.  Each thread takes kTM x 4 output tiles: columns
-// 4 tj .. 4 tj + 3; rows, with kATrans, 4 ti .. 4 ti + 3, else ti + ii *
-// ceil(M / 4) (strided, so that the two to four rows one warp instruction
-// reads are neighbours and, at a row stride of `row_stride`, on different
-// banks).  Full tiles run the vector loop with no bounds test; edge tiles
+// as float4 along j.  Each thread takes kTM x 4 output tiles (kTM 1, 4 or,
+// without kATrans, 8): columns 4 tj .. 4 tj + 3; rows, with kATrans, 4 ti
+// .. 4 ti + 3, else ti + ii * ceil(M / kTM) (strided, so that the two to
+// four rows one warp instruction reads are neighbours and, at a row stride
+// of `row_stride`, on different banks).  Full tiles run the vector loop with no bounds test; edge tiles
 // (and operands that are not 16-byte aligned) a scalar loop in the same k
 // order, so both give the same bits.  kBf16: each operand rounded to bf16
 // as it is read.
 template <bool kBf16, bool kATrans, int kTM, int kBSrc, class EP>
 __device__ __forceinline__ void mmv(int M, int N, int K, const float* A, int lda, const float* B,
                                     int ldb, EP ep) {
-  const int tm = kTM == 4 ? (M + 3) >> 2 : M, tn = (N + 3) >> 2;
-  const int rs = kATrans || kTM == 1 ? 1 : tm;  // row step inside a tile (NN, 4 rows)
+  static_assert(kTM == 1 || kTM == 4 || (kTM == 8 && !kATrans), "row tile of 1, 4 or 8");
+  const int tm = kTM == 8 ? (M + 7) >> 3 : kTM == 4 ? (M + 3) >> 2 : M, tn = (N + 3) >> 2;
+  const int rs = kATrans || kTM == 1 ? 1 : tm;  // row step inside a tile (NN, 4 or 8 rows)
   const bool vec = ((lda | ldb) & 3) == 0 &&
                    ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B)) & 15) == 0;
   auto ldb_ = [&](const float* p) -> float {

@@ -97,9 +97,10 @@ def forward(
     """x: (B, padded_dim_in) -> (B, dim_out).  Hidden sin(w0*z), final sigmoid.
 
     `fast_act=True` swaps torch.sin for the fused kernel's polynomial
-    `sincos` — the training loop's eval on the fused path, so best-epoch
-    selection sees the activation the training steps used.  Decode keeps the
-    default exact path.
+    `sincos` — the training loop's eval on the fused path (kernel K6 on the
+    card, `ops/fused_step.py::fused_eval_sse_plain` with this forward on the
+    CPU), so best-epoch selection sees the activation the training steps
+    used.  Decode keeps the default exact path.
     """
     n = len(params.weights)
     h = x

@@ -17,6 +17,11 @@ plain version only for CPU tensors; `reference_train_step` is the exact
 `torch.sin` + autograd step (or, with `match_kernel=True`, the kernel's own
 numerics) that `use_fused=False` trains with.
 
+`fused_eval_sse` (K6, the same source) is the fast-act eval's masked SSE of
+one row block (`train/loop.py::blocks_mse`): the forward of
+`forward(fast_act=True)`, the squared error and its sum in one launch pair,
+beside its plain version `fused_eval_sse_plain`.
+
 `mm_dtype` (every step function; default None, full f32): "bfloat16"
 rounds both operands of every product to bf16 and accumulates in f32, the
 JAX package's `mm_dtype` (lbdrn_msic_tpu/ops/fused_step.py::_fwd_bwd).  It
@@ -26,13 +31,13 @@ is opt-in: nothing in the codec sets it.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from lbdrn_msic_tpu_torch.core.config import ModelSpec
-from lbdrn_msic_tpu_torch.models.siren import SirenParams, unstack_params
+from lbdrn_msic_tpu_torch.models.siren import SirenParams, forward, unstack_params
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -55,6 +60,7 @@ _COS_P = tuple(map(_f32, (0.9999999403953552, -0.4999990463256836,
 MAX_LAYERS = 16
 THREADS = 256
 ROWS = 64  # batch rows per CTA of the kernel's first pass
+EVAL_ROWS = 128  # the most rows of a K6 tile
 
 
 def sincos(u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -236,17 +242,38 @@ def scratch_stride(P: int) -> int:
     return _r4(P + 2)
 
 
-def cta_layout(dims: List[int], smem_limit: int) -> Tuple[int, bool]:
+def cta_layout(dims: List[int], smem_limit: int, size: Callable = smem_bytes,
+               most_rows: int = ROWS) -> Tuple[int, bool]:
     """(rows per CTA, weights staged in shared memory?) for these widths:
-    the most rows with the weights staged, else the most rows without."""
+    the most rows from `most_rows` down (halving) with the weights staged,
+    else the most rows without.  `size(dims, rows, stage_w)`: the kernel's
+    shared-memory bytes, K1-K4's `smem_bytes` by default (K6 passes
+    `eval_smem_bytes` and EVAL_ROWS)."""
     for stage_w in (True, False):
-        rows = ROWS
+        rows = most_rows
         while rows >= 8:
-            if smem_bytes(dims, rows, stage_w) <= smem_limit:
+            if size(dims, rows, stage_w) <= smem_limit:
                 return rows, stage_w
             rows //= 2
-    raise ValueError(f"layer widths {dims} need {smem_bytes(dims, 8, False)} B "
+    raise ValueError(f"layer widths {dims} need {size(dims, 8, False)} B "
                      f"of shared memory; the device allows {smem_limit}")
+
+
+def eval_smem_bytes(dims: List[int], rows: int, stage_w: bool = True) -> int:
+    """Dynamic shared memory of K6's first pass (the kernel's carve-up, in
+    order): three mbarriers, the per-thread sums and the block-sum buffer;
+    with `stage_w`, every weight and bias (layer 0's first dims[0] rows,
+    dims[0] being the live input width; each 16-byte aligned); up to two
+    hidden-activation buffers at the widest hidden `row_stride`; two ring
+    stages of x rows at `row_stride(dims[0])` and their labels."""
+    L = len(dims) - 1
+    ldh = max([4] + [row_stride(d) for d in dims[1:L]])
+    n = 8 + 2 * THREADS
+    if stage_w:
+        n += sum(_r4(dims[l] * dims[l + 1]) + _r4(dims[l + 1]) for l in range(L))
+    n += min(L - 1, 2) * rows * ldh
+    n += 2 * (rows * row_stride(dims[0]) + _r4(rows * dims[-1]))
+    return 4 * n
 
 
 _lib = None
@@ -274,6 +301,12 @@ def _kernel_lib():
         lib.lbdrn_fused_multi_step.argtypes = [
             ctypes.POINTER(_StepArgs), i32, i32, ptr, i64, i64, ptr, i64, i64, ptr, i64, i64,
             ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.lbdrn_eval_ctas.argtypes = [i32, i32]
+        lib.lbdrn_eval_ctas.restype = i32
+        lib.lbdrn_fused_eval_sse.restype = i32
+        lib.lbdrn_fused_eval_sse.argtypes = [
+            ctypes.POINTER(_StepArgs), ptr, i32, ptr, i32, i32, i32, i32, ptr, i32, i32, ptr, ptr,
         ]
         _smem_optin = lib.lbdrn_smem_optin()
         _lib = lib
@@ -618,6 +651,140 @@ fused_expert_multi_step.launches = 0
 fused_expert_multi_step.grid = 0
 
 
+def _eval_region(x: torch.Tensor, y: torch.Tensor, W: int, skip: int, rows, cols):
+    """(R, C, rows, cols) of one eval block, checked: x (R * W, F) and y
+    (R * W, C); live image rows skip .. rows - 1 (default R), columns below
+    cols (default W)."""
+    n, C = y.shape
+    if x.dim() != 2 or x.shape[0] != n or W < 1 or n % W:
+        raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} are not one block of "
+                         f"image rows of width {W}")
+    R = n // W
+    rows = R if rows is None else rows
+    cols = W if cols is None else cols
+    if not (0 <= skip and rows <= R and 0 < cols <= W):
+        raise ValueError(f"live rows {skip}..{rows} and columns <{cols} outside a {R} x {W} block")
+    return R, C, rows, cols
+
+
+def fused_eval_sse_plain(params: SirenParams, x: torch.Tensor, y: torch.Tensor,
+                         mspec: ModelSpec, W: int, skip: int = 0, rows: int | None = None,
+                         cols: int | None = None, out: torch.Tensor | None = None,
+                         dim_in: int | None = None, fast_act: bool = True) -> torch.Tensor:
+    """K6's function in plain torch ops, in the block path's own order
+    (`forward(fast_act=fast_act)`, the squared error, one sum of the live
+    region): arguments as `fused_eval_sse`.  `dim_in` is not used: the
+    padding columns add exact zeros.  `fast_act=False`: the exact eval
+    (torch.sin), `train/loop.py::blocks_mse`'s path on any device."""
+    R, C, rows, cols = _eval_region(x, y, W, skip, rows, cols)
+    err = (forward(params, x, mspec, fast_act=fast_act) - y) ** 2
+    if rows == R and cols == W:
+        sse = err[skip * W :].sum()
+    else:
+        sse = err.view(R, W, C)[skip:rows, :cols].sum()
+    if out is None:
+        return sse
+    return out.add_(sse)
+
+
+_eval_cache: dict = {}  # (StepArgs, tile rows, shared memory, resident CTAs) per network
+
+
+def _launch_eval(params: SirenParams, x: torch.Tensor, y: torch.Tensor, mspec: ModelSpec,
+                 W: int, skip: int, rows: int, cols: int, out: torch.Tensor,
+                 dim_in: int | None):
+    """Check shapes and launch K6 once over the live rows skip * W ..
+    rows * W - 1 of the block (none: no launch).  Returns True if it
+    launched."""
+    lib = _kernel_lib()
+    dev = x.device
+    n, F = x.shape
+    C = y.shape[1]
+    L = len(params.weights)
+    if L > MAX_LAYERS or L != mspec.num_layers + 1:
+        raise ValueError(f"unsupported layer count {L}")
+    dims = [F] + [w.shape[-1] for w in params.weights]
+    if dims[-1] != C:
+        raise ValueError(f"head width {dims[-1]} != label width {C}")
+    _check(x, (n, F), "x", dev)
+    _check(y, (n, C), "y", dev)
+    _check(out, (), "out", dev)
+    for l in range(L):
+        _check(params.weights[l], (dims[l], dims[l + 1]), ("weight", l), dev)
+        _check(params.biases[l], (dims[l + 1],), ("bias", l), dev)
+    lo, hi = skip * W, rows * W
+    if hi <= lo:
+        return False
+    k0 = F if dim_in is None else min(F, _r4(dim_in))
+    key = (tuple(t.data_ptr() for t in params.leaves()), tuple(dims), k0, mspec)
+    hit = _eval_cache.get(key)
+    if hit is None:
+        live = [k0] + dims[1:]
+        T, stage_w = cta_layout(live, _smem_optin, eval_smem_bytes, EVAL_ROWS)
+        smem = eval_smem_bytes(live, T, stage_w)
+        ctas = lib.lbdrn_eval_ctas(int(stage_w), smem)
+        if ctas <= 0:
+            raise RuntimeError(f"fused_eval_sse: no CTA of {smem} B fits (CUDA error {-ctas})")
+        args = _StepArgs()
+        for l in range(L):
+            args.w[l] = params.weights[l].data_ptr()
+            args.b[l] = params.biases[l].data_ptr()
+        for l, d in enumerate(live):
+            args.dims[l] = d
+        for l, w0 in enumerate(layer_w0s(mspec)):
+            args.w0[l] = w0
+        args.L, args.rows, args.stage_w = L, T, int(stage_w)
+        hit = (args, T, smem, ctas)
+        if len(_eval_cache) > 64:
+            _eval_cache.clear()
+        _eval_cache[key] = hit
+    args, T, smem, ctas = hit
+    grid = min(-(-(hi - lo) // T), ctas)
+    partials = torch.empty((grid,), dtype=torch.float32, device=dev)
+    rc = lib.lbdrn_fused_eval_sse(
+        ctypes.byref(args), x.data_ptr(), F, y.data_ptr(), W, lo, hi - lo, cols,
+        partials.data_ptr(), grid, smem, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused_eval_sse kernel launch failed: CUDA error {rc}")
+    return True
+
+
+def fused_eval_sse(params: SirenParams, x: torch.Tensor, y: torch.Tensor, mspec: ModelSpec,
+                   W: int, skip: int = 0, rows: int | None = None, cols: int | None = None,
+                   out: torch.Tensor | None = None, dim_in: int | None = None) -> torch.Tensor:
+    """Add the masked SSE of one row block of the fast-act eval into `out`.
+
+    x: (R * W, F) f32 inputs of R image rows of width W, y: (R * W, C) f32
+    labels, both contiguous; params in the port's layout (weights (in, out),
+    biases (out,)).  The error of an output is (sigmoid head - y)^2 after
+    hidden sin(w0 z) by `sincos`, as `forward(fast_act=True)` gives it,
+    always in f32.  Live: image rows skip .. rows - 1 of the block (default
+    R), columns below `cols` (default W).  `out`: a 0-d f32 tensor (default
+    a new zero).  `dim_in`: the live input width; the kernel leaves out x's
+    columns past it and W0's rows there, which are zero padding.  Returns
+    out.
+
+    CUDA tensors launch K6 of csrc/fused_step.cu (raising if it cannot build
+    or launch; it never falls back); CPU tensors take
+    `fused_eval_sse_plain`.
+    """
+    if out is None:
+        out = torch.zeros((), dtype=torch.float32, device=x.device)
+    if x.device.type == "cpu":
+        return fused_eval_sse_plain(params, x, y, mspec, W, skip, rows, cols, out, dim_in)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _, _, rows, cols = _eval_region(x, y, W, skip, rows, cols)
+    if _launch_eval(params, x, y, mspec, W, skip, rows, cols, out, dim_in):
+        fused_eval_sse.launches += 1
+    return out
+
+
+fused_eval_sse.launches = 0
+
+
 def reference_train_step(params, m_state, v_state, x, y, mask, lr, step,
                          mspec: ModelSpec, dim_out: int, match_kernel: bool = False,
                          loss_out=None, mm_dtype=None):
@@ -628,8 +795,6 @@ def reference_train_step(params, m_state, v_state, x, y, mask, lr, step,
     if match_kernel:
         return fused_train_step_plain(params, m_state, v_state, x, y, mask,
                                       lr, step, mspec, dim_out, loss_out, mm_dtype)
-    from lbdrn_msic_tpu_torch.models.siren import forward
-
     leaves = [t.detach().requires_grad_(True) for t in params.leaves()]
     L = len(params.weights)
     p = SirenParams(leaves[:L], leaves[L:])

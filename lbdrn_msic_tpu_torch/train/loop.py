@@ -74,6 +74,8 @@ from lbdrn_msic_tpu_torch.models.siren import (
 from lbdrn_msic_tpu_torch.ops.fused_step import (
     _apply_adam,
     fused_expert_multi_step,
+    fused_eval_sse,
+    fused_eval_sse_plain,
     fused_expert_step,
     fused_multi_step,
     fused_train_step,
@@ -126,7 +128,7 @@ def make_lr_schedule(tspec: TrainSpec, steps_per_epoch: int) -> Callable[[int], 
 def blocks_mse(params: SirenParams, x_rows: Callable, y_rows: Callable,
                mspec: ModelSpec, H: int, W: int, C: int, block_rows: int,
                fast_act: bool = False, hw: Optional[Tuple[int, int]] = None,
-               dp_group=None) -> torch.Tensor:
+               dp_group=None, dim_in: Optional[int] = None) -> torch.Tensor:
     """Full-image MSE over row blocks of R = `block_rows` image rows.
 
     x_rows(r0) / y_rows(r0): the (R*W, padded_in) f32 model inputs and the
@@ -138,24 +140,27 @@ def blocks_mse(params: SirenParams, x_rows: Callable, y_rows: Callable,
     JAX package forms it.  `dp_group`: the blocks are round-robined over
     the group's ranks and their SSE summed over it (the JAX package's
     `dataset_mse` under data parallelism), so every rank gets the same
-    MSE.  Returns a 0-d f32 tensor."""
+    MSE.  Each block's forward, error and sum are one call: with
+    `fast_act`, `fused_eval_sse` (kernel K6 on the card; its plain version
+    on the CPU), given `dim_in`, the live input width, when known; else
+    `fused_eval_sse_plain` with the exact sine.  Returns a 0-d f32 tensor."""
     R = block_rows
-    sse = 0.0
+    sse = torch.zeros((), dtype=torch.float32, device=params.weights[0].device)
     first, stride = 0, 1
     if dp_group is not None:
         first, stride = dist.get_rank(dp_group), dist.get_world_size(dp_group)
-        sse = torch.zeros((), dtype=torch.float32, device=params.weights[0].device)
     for b in range(first, -(-H // R), stride):
         if hw is not None and b * R >= hw[0]:
             break  # every later row is padding
         r0 = min(b * R, H - R)
-        pred = forward(params, x_rows(r0), mspec, fast_act=fast_act)
         skip = b * R - r0  # leading rows already counted by block b-1
-        err = (pred - y_rows(r0)) ** 2
-        if hw is None:
-            sse = sse + err[skip * W :].sum()
-        else:
-            sse = sse + err.view(R, W, C)[skip : hw[0] - r0, : hw[1]].sum()
+        rows, cols = (R, W) if hw is None else (min(R, hw[0] - r0), hw[1])
+        if fast_act:
+            fused_eval_sse(params, x_rows(r0), y_rows(r0), mspec, W, skip, rows, cols,
+                           out=sse, dim_in=dim_in)
+        else:  # the exact eval (torch.sin) in plain torch ops, on any device
+            fused_eval_sse_plain(params, x_rows(r0), y_rows(r0), mspec, W, skip, rows, cols,
+                                 out=sse, fast_act=False)
     if dp_group is not None:
         sse = collect(sse, dp_group)
     if hw is None:
@@ -500,7 +505,7 @@ def fit(
                     sse = blocks_mse(params, x_rows,
                                      lambda r0: y_all[r0 * W : (r0 + block_rows) * W],
                                      mspec, H, W, C, block_rows, fast_act=use_fused, hw=hw,
-                                     dp_group=dp_group)
+                                     dp_group=dp_group, dim_in=dim_in)
                     stop()
                     mse = float(sse)
                 if mse < best_mse:  # strict improvement, one sync per epoch
@@ -791,7 +796,8 @@ def fit_rate_experts(
                         sse = blocks_mse(
                             unstack_params(params, e), lambda r0: x_rows(e, r0),
                             lambda r0: y_rows(e, r0), mspec, H, W, C, block_rows,
-                            fast_act=use_fused, hw=hws[e] if hws is not None else None)
+                            fast_act=use_fused, hw=hws[e] if hws is not None else None,
+                            dim_in=dim_in)
                         stop()
                         mse = float(sse)
                     if mse < best_mse[e]:  # strict improvement, per expert
