@@ -63,7 +63,7 @@ from lbdrn_msic_tpu_torch.parallel.distributed import collect_objects
 from lbdrn_msic_tpu_torch.parallel.halo import reconstruct_sp
 from lbdrn_msic_tpu_torch.parallel.shard import axis_rank, axis_size, fit_dp, fit_experts
 from lbdrn_msic_tpu_torch.train.loop import fit, fit_rate_experts
-from lbdrn_msic_tpu_torch.utils.profiling import PhaseTimer
+from lbdrn_msic_tpu_torch.utils.profiling import NoTimer, PhaseTimer
 from lbdrn_msic_tpu_torch.utils.transfer import put_image
 
 
@@ -90,13 +90,16 @@ class EncodeStats:
     # upload, the base codecs' submission and the fit), and inside it the
     # fit's stage (copies, labels, staged features or taps, buffers,
     # init), steps (every epoch's batches and step calls issued) and eval
-    # (each eval's issue and the sync reading its MSE), with eval_device
-    # the evals' seconds on the device clock (CUDA events; none on the
-    # CPU); then train_wait (fetching the trained weights), weights_codec
-    # and base_wait (`encode_image`), or finalize (a rate sweep's or a
-    # dataset chunk's weight coding and base codec wait, for the group).
-    # A rate sweep's group and a dataset's chunk share one dict among
-    # their points.  None on the other paths
+    # (each eval's issue and the sync reading its MSE), with stage_device
+    # and eval_device the stage's and the evals' seconds on the device
+    # clock (CUDA events; none on the CPU); then train_wait (fetching the
+    # trained weights), weights_codec and base_wait (`encode_image`), or
+    # finalize (a rate sweep's or a dataset chunk's weight coding and base
+    # codec wait, for the group).  base_code: the base coders' own seconds
+    # on their worker threads, summed over the job's or the group's
+    # coders (every encode entry but the mesh's; `encode_pipelined`
+    # records only it).  A rate sweep's group and a dataset's chunk share
+    # one dict among their points.  None on the other paths
     phases: Optional[dict] = None
     # the plan of the expert group the job trained in (`encode_dataset`);
     # None where it trained alone
@@ -298,6 +301,18 @@ def _msb_plane(tile: np.ndarray, K: int) -> np.ndarray:
     return msb.astype(np.uint8) if int(msb.max()) <= 255 else msb.astype(np.uint16)
 
 
+def _submit_base(pool, img: np.ndarray, K: int, base_codec: str,
+                 timer: Optional[PhaseTimer] = None):
+    """The base layer of `img` at K coded on a worker of `pool`: a future of
+    its bytes.  `timer` takes the coder's own seconds as `base_code`,
+    beside the caller's wait for them."""
+    def code():
+        with (timer or NoTimer()).phase("base_code"):
+            return encode_base(_msb_plane(img, K), base_codec)
+
+    return pool.submit(code)
+
+
 @dataclasses.dataclass
 class _TileOnDevice:
     """One tile uploaded and prepared for `fit`: the padded base plane, its
@@ -465,7 +480,7 @@ def encode_image(
     overlap = mesh is None and tiles_overlap(img.shape, int(img.max()), img.dtype.itemsize, cfg)
 
     def base_of(tile):
-        return pool.submit(lambda: encode_base(_msb_plane(tile, cfg.K), cfg.base_codec))
+        return _submit_base(pool, tile, cfg.K, cfg.base_codec, timer)
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool, \
             concurrent.futures.ThreadPoolExecutor(max_workers=1) as upload_pool:
@@ -582,9 +597,10 @@ def encode_pipelined(
         require_cv2()
     results: List[Optional[tuple[bytes, EncodeStats]]] = [None] * len(jobs)
 
-    def finalize(i, cfg, shape, flat, base_future, result, t_start, t_train):
+    def finalize(i, cfg, shape, flat, base_future, timer, result, t_start, t_train):
         results[i] = _coded_job(cfg, shape, flat, base_future, result, None, t_train, t_start,
                                 header_version)
+        results[i][1].phases = dict(timer.phases)  # its base coder has finished
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool, \
             concurrent.futures.ThreadPoolExecutor(max_workers=1) as fin_pool:
@@ -601,15 +617,15 @@ def encode_pipelined(
                                           header_version=header_version, bucket=bucket)
                 continue
             t_start = time.time()
-            base_future = pool.submit(
-                lambda t=img, c=cfg: encode_base(_msb_plane(t, c.K), c.base_codec))
+            timer = PhaseTimer()
+            base_future = _submit_base(pool, img, cfg.K, cfg.base_codec, timer)
             flat_fn, result = _train_tile(img, cfg, tile_generator(s, 0), device,
                                           bucket=bucket)
             # the fit ended on its last eval's sync: fetch before the next
             # job's steps are queued behind this copy
             flat = flat_fn()
-            fins.append(fin_pool.submit(finalize, i, cfg, img.shape, flat, base_future, result,
-                                        t_start, time.time() - t_start))
+            fins.append(fin_pool.submit(finalize, i, cfg, img.shape, flat, base_future, timer,
+                                        result, t_start, time.time() - t_start))
         for f in fins:
             f.result()
     return results  # type: ignore[return-value]
@@ -718,11 +734,8 @@ def encode_rate_points(
             t0 = time.time()
             timer = PhaseTimer()
             with timer.phase("dispatch"):
-                base_futs = [
-                    pool.submit(lambda K=cfgs[i].K: encode_base(_msb_plane(img, K),
-                                                                cfg0.base_codec))
-                    for i in grp
-                ]
+                base_futs = [_submit_base(pool, img, cfgs[i].K, cfg0.base_codec, timer)
+                             for i in grp]
                 result = fit_rate_experts(
                     dev_img, [cfgs[i].K for i in grp], tile_generator(seed, 0),
                     fspec, cfg0.model, cfg0.train, H, W, C,
@@ -820,8 +833,8 @@ def _encode_jobs_mesh(
                 done.append((e, encode_image(imgs[i], cfg, gen_seed, use_fused, device,
                                              header_version, bucket=bucket)))
         else:
-            base_futs = {e: pool.submit(lambda i=ijobs[e][0], K=ijobs[e][1].K:
-                                        encode_base(_msb_plane(imgs[i], K), cfg0.base_codec))
+            base_futs = {e: _submit_base(pool, imgs[ijobs[e][0]], ijobs[e][1].K,
+                                         cfg0.base_codec)
                          for e in mine}
             mine_imgs = {ijobs[e][0] for e in mine}
             dev_imgs = [put_image(padded(i), device) if i in mine_imgs else None
@@ -1102,11 +1115,9 @@ def _encode_job_group(
                         if dims[i] != (H, W):
                             im = _pad_to_bucket(im, fspec.D, H, W)
                         dev_cache[i] = put_image(im, device)
-                base_futs = [
-                    pool.submit(lambda i=ijobs[j][0], K=ijobs[j][1].K:
-                                encode_base(_msb_plane(uniq[i], K), cfg0.base_codec))
-                    for j in chunk
-                ]
+                base_futs = [_submit_base(pool, uniq[ijobs[j][0]], ijobs[j][1].K,
+                                          cfg0.base_codec, timer)
+                             for j in chunk]
                 result = fit_rate_experts(
                     tuple(dev_cache[i] for i in c_imgs), [ijobs[j][1].K for j in chunk],
                     tile_generator(gen_seed, 0), fspec, cfg0.model, cfg0.train, H, W, C,

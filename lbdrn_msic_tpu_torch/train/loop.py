@@ -363,10 +363,12 @@ def fit(
 
     `timer` (None: no spans) records the fit's phases: `stage` (entry up
     to the first step: copies, labels, the staged features or taps,
-    buffers, init), `steps` (one span an epoch: its batches, their
-    staging and the step calls issued), `eval` (one span an eval: its
-    issue and the sync that reads its MSE) and `eval_device` (the eval's
-    device seconds, CUDA events; not on the CPU).
+    buffers, init), `stage_device` (its device seconds, CUDA events from
+    the entry to the init's upload, which syncs the stream), `steps` (one
+    span an epoch: its batches, their staging and the step calls issued),
+    `eval` (one span an eval: its issue and the sync that reads its MSE)
+    and `eval_device` (the eval's device seconds, CUDA events); neither
+    device span on the CPU.
     """
     if staging not in ("cached", "full", "banded", "gather"):
         raise ValueError(f"unknown staging mode {staging!r}")
@@ -384,6 +386,7 @@ def fit(
     span = timer if timer is not None else NoTimer()
     with torch.no_grad(), contextlib.ExitStack() as in_stage:
         in_stage.enter_context(span.phase("stage"))
+        stage_done = in_stage.enter_context(span.device_phase("stage_device", dev))
         plane, plane_scale, labels = plane.to(dev), plane_scale.to(dev), labels.to(dev)
         dim_in = fspec.feature_dim(C)
         padded_in = pad_dim(dim_in)
@@ -465,6 +468,7 @@ def fit(
 
         if init is None:
             init = siren_init(generator, dim_in, C, mspec, pad_input_to=padded_in)
+        stage_done()  # before the init's upload, whose copy syncs the stream
         params = init.map(lambda t: t.to(dev, torch.float32).clone())
         m_state = params.map(torch.zeros_like)
         v_state = params.map(torch.zeros_like)
@@ -627,7 +631,8 @@ def fit_rate_experts(
     by `_chunks`, the chunk's batches staged at once in (k, E, bs,
     padded_in); the result is the per-step fit's.  `mm_dtype` as for
     `fit`: the fused expert steps' product operands.  `timer` as for `fit`:
-    `stage`, `steps`, and `eval` / `eval_device` once per expert eval.
+    `stage` / `stage_device`, `steps`, and `eval` / `eval_device` once per
+    expert eval.
 
     Returns a FitResult whose fields carry a leading expert axis.
     """
@@ -660,6 +665,7 @@ def fit_rate_experts(
     span = timer if timer is not None else NoTimer()
     with torch.no_grad(), contextlib.ExitStack() as in_stage:
         in_stage.enter_context(span.phase("stage"))
+        stage_done = in_stage.enter_context(span.device_phase("stage_device", dev))
         dev_imgs = {i: imgs[i].to(dev, torch.int32) for i in used}
         dim_in = fspec.feature_dim(C)
         padded_in = pad_dim(dim_in)
@@ -755,6 +761,7 @@ def fit_rate_experts(
 
         if init is None:
             init = siren_init(generator, dim_in, C, mspec, pad_input_to=padded_in)
+        stage_done()  # before the init's upload, whose copy syncs the stream
         params = init.map(lambda t: t.to(dev, torch.float32).expand(E, *t.shape).contiguous())
         m_state = params.map(torch.zeros_like)
         v_state = params.map(torch.zeros_like)

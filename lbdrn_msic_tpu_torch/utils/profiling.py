@@ -4,9 +4,11 @@
   device spans (`device_phase`, CUDA events), surfaced as
   `EncodeStats.phases` / `DecodeStats.phases`: the codec's dispatch,
   device waits, host codecs and decode assembly, and inside `dispatch` the
-  fit's staging, step issue and evals (codec.py names each).  While a
-  torch profiler runs, every host span is also a `phase:<name>` range on
-  the profiler's clock;
+  fit's staging, step issue and evals (codec.py names each).  Spans may
+  close on several threads at once (the base coders' workers add
+  `base_code` beside the caller's phases): each addition holds a lock.
+  While a torch profiler runs, every host span is also a `phase:<name>`
+  range on the profiler's clock;
 - `trace()`: a context manager around `torch.profiler` that writes a
   Chrome trace of the region (host ops of every thread and, on a CUDA
   run, the device's kernels and copies) into a directory.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from typing import Callable, Dict, Iterator
 
@@ -25,6 +28,11 @@ import torch
 class PhaseTimer:
     def __init__(self):
         self.phases: Dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def _add(self, name: str, seconds: float) -> None:
+        with self._lock:
+            self.phases[name] = self.phases.get(name, 0.0) + seconds
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
@@ -38,7 +46,7 @@ class PhaseTimer:
         try:
             yield
         finally:
-            self.phases[name] = self.phases.get(name, 0.0) + (time.perf_counter() - t0)
+            self._add(name, time.perf_counter() - t0)
             if rf is not None:
                 rf.__exit__(None, None, None)
 
@@ -58,7 +66,7 @@ class PhaseTimer:
         start.record()
         yield end.record
         end.synchronize()
-        self.phases[name] = self.phases.get(name, 0.0) + start.elapsed_time(end) / 1e3
+        self._add(name, start.elapsed_time(end) / 1e3)
 
 
 class NoTimer:

@@ -1,6 +1,7 @@
 """The port's spans: `PhaseTimer` (a monotonic clock, nested phases, a
-profiler range while a profiler runs), the fit's phases (`stage`, `steps`,
-`eval`, `eval_device`) and their trip through the codec paths, the dataset
+profiler range while a profiler runs, sums safe across threads), the fit's
+phases (`stage`, `steps`, `eval`, `eval_device`, `stage_device`) and their
+trip through the codec paths, the base coders' `base_code`, the dataset
 chunk path's phases, the pipelined decode's `dispatch_wait`, and the
 operator's trace of every thread."""
 
@@ -87,6 +88,35 @@ def test_phase_is_a_profiler_range_only_under_a_profiler(monkeypatch):
     with t.phase("plain"):
         pass
     assert "plain" in t.phases
+
+
+def test_phase_sums_exactly_from_eight_threads(monkeypatch):
+    """8 threads closing 1,000 spans each of one name (as a rate sweep's or
+    a dataset's base coders close `base_code` beside each other) add up
+    exactly: each span reads 1.0 s on a per-thread clock that hands the
+    GIL on at every read, so an addition that is not atomic loses some."""
+    local = threading.local()
+
+    def clock():
+        local.n = getattr(local, "n", -1) + 1
+        time.sleep(0)
+        return float(local.n)
+
+    monkeypatch.setattr(profiling.time, "perf_counter", clock)
+    t = PhaseTimer()
+
+    def work():
+        for _ in range(1000):
+            with t.phase("base_code"):
+                pass
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    assert not any(th.is_alive() for th in threads)
+    assert t.phases == {"base_code": 8000.0}
 
 
 def test_device_phase_records_nothing_off_cuda():
@@ -225,6 +255,29 @@ def test_dataset_chunk_points_share_their_chunks_phases(scene, monkeypatch, chun
     assert len({tuple(sorted(d.items())) for d in dicts}) == chunks
 
 
+@pytest.mark.parametrize("entry", ["image", "rate_points", "dataset", "pipelined"])
+def test_every_encode_entry_times_its_base_coder(scene, entry):
+    """Each encode entry that submits the base coder records the coder's
+    own seconds on its worker as `base_code`, in the phases its points
+    carry (`encode_pipelined`: only that span)."""
+    other = synth_scene(32, 40, channels=C, effective_bits=12, seed=6)
+    if entry == "image":
+        res = [codec.encode_image(scene, _cfg(5), device="cpu")]
+    elif entry == "rate_points":
+        res = codec.encode_rate_points(scene, [_cfg(K) for K in (3, 5)], device="cpu")
+    elif entry == "dataset":  # one chunk of two images x two K
+        res = codec.encode_dataset([(im, _cfg(K)) for im in (scene, other) for K in (3, 4)],
+                                   device="cpu")
+    else:
+        res = codec.encode_pipelined([(scene, _cfg(5)), (other, _cfg(5))], device="cpu")
+    for _, stats in res:
+        assert stats.phases["base_code"] > 0
+    if entry == "pipelined":
+        assert all(set(stats.phases) == {"base_code"} for _, stats in res)
+    else:
+        assert "base_wait" in res[0][1].phases or "finalize" in res[0][1].phases
+
+
 def test_pipelined_decode_records_the_wait_on_its_worker(scene):
     streams = [codec.encode_image(scene, _cfg(K, epochs=1), device="cpu")[0] for K in (4, 5, 6)]
     out = list(codec.decode_pipelined_iter(iter(streams), ahead=1, device="cpu"))
@@ -236,8 +289,9 @@ def test_pipelined_decode_records_the_wait_on_its_worker(scene):
 # ------------------------------------------------------------------ on the card
 @pytest.mark.cuda
 def test_eval_device_within_eval_on_card(scene):
-    """On the card the eval's device seconds are recorded, above 0 and
-    within its host span (which ends on the eval's own sync)."""
+    """On the card the eval's and the stage's device seconds are recorded,
+    above 0 and within their host spans (which end on the eval's own sync,
+    and after the init's upload that syncs the stage)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: eval_device reads CUDA events")
     plane, scale, lsb, ls = _fit_inputs(scene, 5)
@@ -247,9 +301,11 @@ def test_eval_device_within_eval_on_card(scene):
              TrainSpec(epochs=2, batch_size=256, sample_granule=8), H, W, C, device="cuda",
              timer=timer)
     assert 0 < timer.phases["eval_device"] <= timer.phases["eval"]
+    assert 0 < timer.phases["stage_device"] <= timer.phases["stage"]
     img = torch.from_numpy(scene.astype(np.int32))
     timer = PhaseTimer()
     loop.fit_rate_experts(img, [3, 5], torch.Generator().manual_seed(7), FeatureSpec(),
                           ModelSpec(), TrainSpec(epochs=2, batch_size=256, sample_granule=8),
                           H, W, C, device="cuda", timer=timer)
     assert 0 < timer.phases["eval_device"] <= timer.phases["eval"]
+    assert 0 < timer.phases["stage_device"] <= timer.phases["stage"]

@@ -38,6 +38,9 @@ RUN = "_r1_K{}_bc64_nl2_D2_prec16_lr0.001_bs1024_e1"
 # the port's spans inside `dispatch` (`train/loop.py`), which the JAX
 # package does not record; at one epoch there is no eval
 FIT_PHASES = ("stage", "steps", "eval", "eval_device")
+# with the base coders' own seconds on their workers (`codec._submit_base`)
+# and the stage's device span (none on the CPU): the port's alone
+PORT_PHASES = FIT_PHASES + ("stage_device", "base_code")
 # a dataset chunk's phases (`codec._encode_job_group`), which the JAX
 # package's chunk path does not record
 CHUNK_PHASES = ["dispatch", "finalize", "train_wait"]
@@ -162,15 +165,18 @@ def _log_keys(path, out):
 def _as_jax_phases(keys, chunk):
     """The port's encode log keys as the JAX package's log has them: the
     `phases:` line names the fit's `stage` and `steps` and, but for those
-    and the other FIT_PHASES, the JAX package's phases; a dataset chunk's
+    and the other PORT_PHASES, the JAX package's phases; a dataset chunk's
     line, which the JAX package does not write, names CHUNK_PHASES and the
-    fit's, and is dropped."""
+    port's own, and is dropped, as is a pipelined job's, which names only
+    `base_code`."""
     out = []
     for k in keys:
         if k.startswith("phases: "):
             names = [p.split("=")[0] for p in k.split()[1:]]
+            if names == ["base_code"]:
+                continue
             assert {"stage", "steps"} <= set(names), k
-            kept = [p for p in k.split()[1:] if p.split("=")[0] not in FIT_PHASES]
+            kept = [p for p in k.split()[1:] if p.split("=")[0] not in PORT_PHASES]
             if chunk:
                 assert [p.split("=")[0] for p in kept] == CHUNK_PHASES, k
                 continue
