@@ -60,6 +60,16 @@ Phases, one JSON line each (every phase asserts; nothing is caught):
            base codec lpc: one warm and three timed encodes, each of which
            must launch K1 exactly epochs x steps = 5120 times (and K2 never)
            and K6 exactly epochs x row blocks = 320 times
+  step_issue  the host's step issue at the same shapes (K 5, "cached"): the
+           timed encodes' untraced `steps` span (host µs a step: staging a
+           chunk of steps' batches in one pass, then one K1 call a step)
+           beside K1's device µs a step (CUDA events behind a GPU sleep, at
+           the fit's batch and widths) and the loop's per-step issue alone
+           (100 steps' views, schedule and K1 calls behind a GPU sleep, so
+           that no launch waits for the card: the span reads the card's
+           pace wherever the host runs ahead); each encode binds K1's launch plan
+           once (`fused_train_step.binds`) and stages epochs x
+           ceil(steps / chunk_steps) chunks (`fit.chunks`)
   determinism  the timed encodes' streams are byte-identical
   decode   three timed decodes (the base's four row chunks through the
            streamed lpc path, "dispatch_pipelined"), interleaved with three
@@ -1517,6 +1527,7 @@ def phase_codec(profile: bool, kernel, eval_kernel=None):
     from lbdrn_msic_tpu_torch.features.engine import feature_block_rows
     from lbdrn_msic_tpu_torch.ops.fused_step import (
         fused_eval_sse, fused_expert_step, fused_train_step)
+    from lbdrn_msic_tpu_torch.train import loop
     from lbdrn_msic_tpu_torch.utils.synth import synth_scene
 
     H = W = 2048
@@ -1529,9 +1540,10 @@ def phase_codec(profile: bool, kernel, eval_kernel=None):
     t0 = time.time()
     warm_stream, _ = encode_image(img, cfg)
     warm_s = time.time() - t0
-    streams, secs, launches = [], [], []
+    streams, secs, launches, issue = [], [], [], []
     for _ in range(3):
         fused_train_step.launches = fused_expert_step.launches = fused_eval_sse.launches = 0
+        binds0, chunks0 = fused_train_step.binds, loop.fit.chunks
         torch.cuda.synchronize()
         t0 = time.time()
         stream, stats = encode_image(img, cfg)
@@ -1540,6 +1552,9 @@ def phase_codec(profile: bool, kernel, eval_kernel=None):
         assert fused_expert_step.launches == 0, fused_expert_step.launches
         assert fused_eval_sse.launches == n_evals, (fused_eval_sse.launches, n_evals)
         streams.append(stream)
+        issue.append({"steps_s": stats.phases["steps"],
+                      "binds": fused_train_step.binds - binds0,
+                      "chunks": loop.fit.chunks - chunks0})
     assert launches == [n_steps] * 3, (launches, n_steps)
     kernel["launches"] = launches[0]
     kernel["launches_by_path"] = {"encode": launches[0]}
@@ -1553,6 +1568,7 @@ def phase_codec(profile: bool, kernel, eval_kernel=None):
           "expected_launches": n_steps, "eval_launches": n_evals,
           "sha256": hashlib.sha256(streams[0]).hexdigest()})
 
+    phase_step_issue(cfg, H, W, n_steps, issue)
     if profile:
         phase_profile("encode", lambda: encode_image(img, cfg), secs)
 
@@ -1584,6 +1600,59 @@ def phase_codec(profile: bool, kernel, eval_kernel=None):
           "jax_package_rd_point": {"psnr_db": 61.79, "bpsp": 1.958,
                                    "source": "BENCH_r05.json"}})
     return {"stream": streams[0], "psnr_db": p, "bpsp": stats.bpsp, "img": img}
+
+
+def phase_step_issue(cfg, H: int, W: int, n_steps: int, issue):
+    """The step_issue line, from the encode phase's timed encodes
+    (`issue`: each one's `steps` seconds, plan binds and chunks staged)."""
+    import torch
+
+    from lbdrn_msic_tpu_torch.models.siren import init_params, pad_dim
+    from lbdrn_msic_tpu_torch.ops.fused_step import fused_train_step
+    from lbdrn_msic_tpu_torch.train import loop
+
+    C = 4
+    t = cfg.train
+    geo = loop._batch_geometry(t, H, W, "cached")
+    F = pad_dim(cfg.features.feature_dim(C))
+    chunk = loop.chunk_steps(1, geo.bs, F, geo.steps)
+    assert geo.steps * t.epochs == n_steps, (geo, n_steps)
+    for rec in issue:
+        assert rec["binds"] == 1, issue  # one fit, one leaf set
+        assert rec["chunks"] == t.epochs * -(-geo.steps // chunk), (issue, chunk)
+    # K1 alone at the fit's shapes, from a fresh state
+    dev = torch.device("cuda")
+    p = init_params(torch.Generator().manual_seed(0), cfg.features.feature_dim(C), C, cfg.model,
+                    pad_input_to=F).map(lambda a: a.to(dev))
+    m, v = p.map(torch.zeros_like), p.map(torch.zeros_like)
+    x = torch.rand(geo.bs, F, device=dev)
+    y, mask = torch.rand(geo.bs, C, device=dev), torch.ones(geo.bs, device=dev)
+    loss = torch.zeros((), device=dev)
+    k1_us = 1e3 * cuda_ms(lambda: fused_train_step(p, m, v, x, y, mask, 1e-3, 1, cfg.model, C,
+                                                   loss_out=loss), 300)
+    # the loop's per-step issue alone (views of a chunk, the schedule, one
+    # K1 call), behind a GPU sleep so that no launch waits for the card
+    n = 100
+    xs, ys = torch.rand(n, geo.bs, F, device=dev), torch.rand(n, geo.bs, C, device=dev)
+    x_at, y_at = xs.unbind(0), ys.unbind(0)
+    masks, losses = torch.ones(n, geo.bs, device=dev), torch.zeros(n, device=dev)
+    schedule = loop.make_lr_schedule(t, geo.steps)
+    alone = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)  # ~50 ms of device time
+        t0 = time.perf_counter()
+        for s in range(n):
+            fused_train_step(p, m, v, x_at[s], y_at[s], masks[s], schedule(s), s + 1, cfg.model,
+                             C, loss_out=losses[s], mm_dtype=None)
+        alone.append(1e6 * (time.perf_counter() - t0) / n)
+        torch.cuda.synchronize()
+    host_us = [1e6 * rec["steps_s"] / n_steps for rec in issue]
+    emit({"phase": "step_issue", "shape": [C, H, W], "staging": "cached",
+          "steps": n_steps, "chunk_steps": chunk, "chunks": [r["chunks"] for r in issue],
+          "binds": [r["binds"] for r in issue], "launches_k1": n_steps,
+          "host_us_per_step": host_us, "k1_device_us_per_step": k1_us,
+          "host_at_or_below_k1": max(host_us) <= k1_us, "issue_alone_us_per_step": alone})
 
 
 def phase_rd(encoded, bench_rec):

@@ -31,6 +31,8 @@ is opt-in: nothing in the codec sets it.
 from __future__ import annotations
 
 import ctypes
+import functools
+import operator
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
@@ -145,8 +147,10 @@ def adam(theta, grad, m, v, lr, c1, c2):
     return theta_new, m_new, v_new
 
 
+@functools.lru_cache(maxsize=1 << 17)
 def bias_corrections(step: int) -> Tuple[float, float]:
-    """(c1, c2) = (1/(1-b1^t), 1/(1-b2^t)) in float32 for 1-indexed `step`."""
+    """(c1, c2) = (1/(1-b1^t), 1/(1-b2^t)) in float32 for 1-indexed `step`
+    (remembered: every fit asks for the same steps)."""
     t = np.float32(step)
     one = np.float32(1.0)
     c1 = one / (one - np.float32(ADAM_B1) ** t)
@@ -278,9 +282,9 @@ def eval_smem_bytes(dims: List[int], rows: int, stage_w: bool = True) -> int:
 
 _lib = None
 _smem_optin = 0
-# StepArgs per (param/m/v pointers, B, widths, spec, mm_dtype): fixed over a
-# fit, so each training step reuses one struct
-_args_cache: dict = {}
+# K1's (key True) and K2's (key False) bound launch plan: one leaf set a
+# fit, so every step after the first reuses it (`_launch`)
+_plans: dict = {}
 
 
 def _kernel_lib():
@@ -328,13 +332,23 @@ def _check(t: torch.Tensor, shape, what, device: torch.device):
     raise ValueError(f"{what}: must be contiguous")
 
 
+def _fits(t: torch.Tensor, shape, dev: torch.device) -> bool:
+    """`_check`'s test, without its messages."""
+    return (t.dtype is torch.float32 and t.shape == shape and t.device == dev
+            and t.is_contiguous())
+
+
+def _raw_stream(dev: torch.device) -> int:
+    """The handle of `dev`'s current CUDA stream, which the launches use."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def _step_args(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
                B: int, F: int, mspec: ModelSpec, dim_out: int, lead: tuple,
                dev: torch.device, mm_dtype=None):
     """Check the param and Adam-state leaves (each with the leading axes
-    `lead`: () for one network, (E,) for experts) and return the cached
-    (StepArgs, shared-memory bytes, row tiles, P) for them, batch B and
-    `mm_dtype`."""
+    `lead`: () for one network, (E,) for experts) and return (StepArgs,
+    shared-memory bytes, row tiles, P) for them, batch B and `mm_dtype`."""
     bf16 = mm_bf16(mm_dtype)
     L = len(params.weights)
     if L > MAX_LAYERS or L != mspec.num_layers + 1:
@@ -347,42 +361,64 @@ def _step_args(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
             _check(st.weights[l], (*lead, dims[l], dims[l + 1]), (nm, "weight", l), dev)
             _check(st.biases[l], (*lead, dims[l + 1]), (nm, "bias", l), dev)
 
-    leaves = params.leaves() + m_state.leaves() + v_state.leaves()
-    key = (tuple(t.data_ptr() for t in leaves), B, tuple(dims), mspec, bf16)
-    hit = _args_cache.get(key)
-    if hit is None:
-        rows, stage_w = cta_layout(dims, _smem_optin)
-        args = _StepArgs()
-        for name, ts in (("w", params.weights), ("b", params.biases),
-                         ("mw", m_state.weights), ("vw", v_state.weights),
-                         ("mb", m_state.biases), ("vb", v_state.biases)):
-            arr = getattr(args, name)
-            for l, t in enumerate(ts):
-                arr[l] = t.data_ptr()
-        for l, d in enumerate(dims):
-            args.dims[l] = d
-        for l, w0 in enumerate(layer_w0s(mspec)):
-            args.w0[l] = w0
-        args.L, args.B, args.rows, args.stage_w = L, B, rows, int(stage_w)
-        args.mm_bf16 = int(bf16)
-        P = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(L))
-        hit = (args, smem_bytes(dims, rows, stage_w), -(-B // rows), P)
-        if len(_args_cache) > 64:
-            _args_cache.clear()
-        _args_cache[key] = hit
-    return hit
+    rows, stage_w = cta_layout(dims, _smem_optin)
+    args = _StepArgs()
+    for name, ts in (("w", params.weights), ("b", params.biases),
+                     ("mw", m_state.weights), ("vw", v_state.weights),
+                     ("mb", m_state.biases), ("vb", v_state.biases)):
+        arr = getattr(args, name)
+        for l, t in enumerate(ts):
+            arr[l] = t.data_ptr()
+    for l, d in enumerate(dims):
+        args.dims[l] = d
+    for l, w0 in enumerate(layer_w0s(mspec)):
+        args.w0[l] = w0
+    args.L, args.B, args.rows, args.stage_w = L, B, rows, int(stage_w)
+    args.mm_bf16 = int(bf16)
+    P = sum(dims[l] * dims[l + 1] + dims[l + 1] for l in range(L))
+    return args, smem_bytes(dims, rows, stage_w), -(-B // rows), P
 
 
-def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
-            x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, lr: float, step: int,
-            mspec: ModelSpec, dim_out: int, loss_out: torch.Tensor | None, E: int | None,
-            mm_dtype=None, corrections=None):
-    """Check shapes and launch csrc/fused_step.cu once: one network
-    (`E=None`: unstacked leaves, x (B, F), mask (B,), 0-d loss) or E experts
-    (leaves with a leading E axis, x (E, B, F), mask (B,) shared or (E, B),
-    (E,) loss).  `corrections` (c1, c2) replaces the bias corrections of
-    `step` when given.  Returns the loss tensor."""
-    lib = _kernel_lib()
+class _Plan:
+    """K1's or K2's launches for one (params, m, v) leaf set, bound by
+    `_bind` after every check: the StepArgs, the shared memory and row
+    tiles, the scratch rows of the partials (owned by the plan and reused
+    by its launches in stream order on the one stream they run on, as K1/K2's
+    successive launches run), and the shapes a call's y, mask and loss
+    must have.  `key`: x's shape, the mask's rank, the head width, the
+    spec, `mm_dtype` and the stream it was bound at."""
+
+    __slots__ = ("leaves", "key", "argp", "n_exp", "smem", "n_cta", "S", "scratch",
+                 "scratch_ptr", "mask_stride", "lead", "y_shape", "mask_shape", "dev")
+
+    def __init__(self, leaves, key, args, smem, n_cta, P, lead, mask_stride, dev):
+        B = key[0][-2]
+        self.leaves, self.key, self.argp = leaves, key, ctypes.pointer(args)
+        self.n_exp = lead[0] if lead else 1
+        self.smem, self.n_cta, self.S = smem, n_cta, scratch_stride(P)
+        self.scratch = torch.empty((self.n_exp, n_cta, self.S), dtype=torch.float32, device=dev)
+        self.scratch_ptr = self.scratch.data_ptr()
+        self.mask_stride, self.lead = mask_stride, lead
+        self.y_shape = (*lead, B, key[2])
+        self.mask_shape = (*lead, B) if mask_stride else (B,)
+        self.dev = dev
+
+    def serves(self, key, leaves, x, y, mask, loss_out) -> bool:
+        """True if a launch at `key` with these leaves and tensors may
+        use this plan: the same leaf objects, and x, y, mask and loss as
+        `_bind`'s checks would pass them."""
+        d = self.dev
+        return (self.key == key and len(leaves) == len(self.leaves)
+                and all(map(operator.is_, leaves, self.leaves))
+                and _fits(x, key[0], d) and _fits(y, self.y_shape, d)
+                and _fits(mask, self.mask_shape, d)
+                and (loss_out is None or _fits(loss_out, self.lead, d)))
+
+
+def _bind(params, m_state, v_state, x, y, mask, mspec, dim_out, loss_out, E, mm_dtype,
+          leaves, key) -> _Plan:
+    """Every check of a launch, then the plan for these leaves (counted in
+    `fused_train_step.binds` or `fused_expert_step.binds`)."""
     lead = () if E is None else (E,)
     B, F = x.shape[-2:]
     dev = x.device
@@ -396,19 +432,46 @@ def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
         mask_stride = 0
     args, smem, n_cta, P = _step_args(params, m_state, v_state, B, F, mspec, dim_out, lead, dev,
                                       mm_dtype)
-    if loss_out is None:
-        loss_out = torch.empty(lead, dtype=torch.float32, device=dev)
-    else:
+    if loss_out is not None:
         _check(loss_out, lead, "loss_out", dev)
+    plan = _Plan(leaves, key, args, smem, n_cta, P, lead, mask_stride, dev)
+    _plans[E is None] = plan
+    (fused_train_step if E is None else fused_expert_step).binds += 1
+    return plan
 
-    n_exp = 1 if E is None else E
-    S = scratch_stride(P)
-    scratch = torch.empty((n_exp, n_cta, S), dtype=torch.float32, device=dev)
+
+def _launch(params: SirenParams, m_state: SirenParams, v_state: SirenParams,
+            x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, lr: float, step: int,
+            mspec: ModelSpec, dim_out: int, loss_out: torch.Tensor | None, E: int | None,
+            mm_dtype=None, corrections=None):
+    """Check shapes and launch csrc/fused_step.cu once: one network
+    (`E=None`: unstacked leaves, x (B, F), mask (B,), 0-d loss) or E experts
+    (leaves with a leading E axis, x (E, B, F), mask (B,) shared or (E, B),
+    (E,) loss).  `corrections` (c1, c2) replaces the bias corrections of
+    `step` when given.  Returns the loss tensor.
+
+    The first call with a leaf set binds a plan (`_bind`: every check);
+    later calls that pass the same leaf objects (`is`) with the same x
+    shape, mask rank, head width, spec, `mm_dtype` and current stream
+    reuse it after checking only x, y, mask and loss (`_Plan.serves`).
+    Anything else goes through `_bind` again, so a bad tensor raises the
+    same ValueError on any call.  A bound leaf is trusted to stay the
+    tensor it was, updated in place as the kernel and the training loops
+    update it (never re-pointed by `.data =` or `set_`)."""
+    lib = _kernel_lib()
+    leaves = params.leaves() + m_state.leaves() + v_state.leaves()
+    key = (x.shape, mask.dim(), dim_out, mspec, mm_dtype, _raw_stream(x.device))
+    plan = _plans.get(E is None)
+    if plan is None or not plan.serves(key, leaves, x, y, mask, loss_out):
+        plan = _bind(params, m_state, v_state, x, y, mask, mspec, dim_out, loss_out, E, mm_dtype,
+                     leaves, key)
+    if loss_out is None:
+        loss_out = torch.empty(plan.lead, dtype=torch.float32, device=x.device)
     c1, c2 = corrections or bias_corrections(step)
     rc = lib.lbdrn_fused_step(
-        ctypes.byref(args), n_exp, x.data_ptr(), y.data_ptr(), mask.data_ptr(), mask_stride,
-        scratch.data_ptr(), n_cta, S, smem, loss_out.data_ptr(),
-        float(np.float32(lr)), c1, c2, torch.cuda.current_stream(dev).cuda_stream,
+        plan.argp, plan.n_exp, x.data_ptr(), y.data_ptr(), mask.data_ptr(), plan.mask_stride,
+        plan.scratch_ptr, plan.n_cta, plan.S, plan.smem, loss_out.data_ptr(),
+        float(np.float32(lr)), c1, c2, key[-1],
     )
     if rc != 0:
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {rc}")
@@ -499,6 +562,7 @@ def fused_train_step(params: SirenParams, m_state: SirenParams, v_state: SirenPa
 
 
 fused_train_step.launches = 0
+fused_train_step.binds = 0  # plans bound (`_bind`): one a fit's leaf set
 
 
 def fused_expert_step_plain(params, m_state, v_state, x, y, mask, lr, step,
@@ -549,6 +613,7 @@ def fused_expert_step(params: SirenParams, m_state: SirenParams, v_state: SirenP
 
 
 fused_expert_step.launches = 0
+fused_expert_step.binds = 0
 
 
 def fused_multi_step_plain(params, m_state, v_state, X, Y, masks, lrs, step0,

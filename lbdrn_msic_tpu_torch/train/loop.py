@@ -12,14 +12,20 @@ Faithful semantics (RD parity with the reference at matched settings):
   best-params checkpoint (reference encode.py:96-117); with epochs == 1 the
   final weights are taken directly (reference encode.py:100-103).
 
-Every step of `fit` builds one batch by its staging mode and makes one
-call of the fused step (`ops/fused_step.py`: kernel K1 on the card) or,
-with `use_fused=False`, of the exact autograd step; every step of
-`fit_rate_experts` builds one batch per expert from its taps and makes one
-call of the expert step (kernel K2) for all experts.  With `multi_k`, the
-fused loops run each epoch in chunks of k steps instead: one gather of the
-chunk's batches and one multi-step call (K3, or K4 for experts), the same
-function as k single steps and, on the card, bit-identical to them.
+Both loops run each epoch in chunks of steps (`chunk_steps`: as many as
+MULTI_STEP_BYTES of staged batches hold) and build a chunk's batches in
+one pass, by the staging mode (`fit`) or from every expert's taps
+(`fit_rate_experts`).  Then every step of `fit` makes one call of the
+fused step (`ops/fused_step.py`: kernel K1 on the card) or, with
+`use_fused=False`, of the exact autograd step, on its views of the
+chunk's buffers; every step of `fit_rate_experts` makes one call of the
+expert step (kernel K2) for all experts.  The batches are those a step
+would build alone, in the same order.  With `multi_k`, the fused loops
+make one multi-step call a chunk of k steps instead (K3, or K4 for
+experts), the same function as k single steps and, on the card,
+bit-identical to them.  Each epoch's permutation and masks are drawn once
+the epoch before has issued its steps, while the card works through them
+(the draws in the same order as one an epoch at its start).
 `mm_dtype="bfloat16"` (opt-in, as in the JAX package) rounds the operands
 of the fused steps' products to bf16; the eval stays f32.  Neither loop
 syncs with the device inside an epoch: per-step losses land in a
@@ -84,8 +90,8 @@ from lbdrn_msic_tpu_torch.ops.fused_step import (
 from lbdrn_msic_tpu_torch.parallel.distributed import collect
 from lbdrn_msic_tpu_torch.utils.profiling import NoTimer, PhaseTimer
 
-# the staged batches of one multi-step chunk stay under this many bytes
-# (the opt-in `multi_k` path only, which no codec entry point sets)
+# the staged f32 batches of one chunk of steps stay under this many bytes
+# (`chunk_steps`): the per-step path's and the opt-in `multi_k` path's
 MULTI_STEP_BYTES = 512 << 20
 
 
@@ -118,9 +124,12 @@ def make_lr_schedule(tspec: TrainSpec, steps_per_epoch: int) -> Callable[[int], 
 
     step_size = tspec.lr_step_size()
 
+    @functools.lru_cache(maxsize=None)
+    def decayed(n: int) -> float:  # after n decays: one value for step_size epochs
+        return float(f32(tspec.lr) * f32(tspec.lr_gamma) ** f32(n))
+
     def schedule(step: int) -> float:
-        epoch = step // steps_per_epoch
-        return float(f32(tspec.lr) * f32(tspec.lr_gamma) ** f32(epoch // step_size))
+        return decayed(step // steps_per_epoch // step_size)
 
     return schedule
 
@@ -215,20 +224,24 @@ def _batch_geometry(tspec: TrainSpec, H: int, W: int, staging: str = "cached",
     return Geometry(bs, g, n_g, ng_row, bpg, -(-n_g // bpg))
 
 
+def chunk_steps(E: int, bs: int, padded_in: int, steps: int) -> int:
+    """Steps whose staged (E, bs, padded_in) f32 batches fit in
+    MULTI_STEP_BYTES together, at least 1 and at most one epoch's."""
+    return max(1, min(MULTI_STEP_BYTES // (E * bs * padded_in * 4), steps))
+
+
 def multi_step_k(multi_k: Optional[int], use_fused: bool, E: int, bs: int,
                  padded_in: int, steps: int, per_expert_masks: bool = False) -> int:
     """Steps per multi-step call (0: one step per call), by the JAX
     package's rule (train/loop.py:333-339 for `fit`, E = 1; :739-752 for
     `fit_rate_experts`): 0 unless `use_fused`, or with per-expert masks
-    (the kernel shares one mask per step); else `multi_k` capped so that
-    the staged (k, E, bs, padded_in) f32 batches stay under
-    MULTI_STEP_BYTES, and at one epoch; below 2, 0.  The JAX rule also
-    needs the batch to fit one TPU VMEM tile (`pick_tile(bs) == bs`); the
-    card's kernel tiles any batch, so that gate is dropped."""
+    (the kernel shares one mask per step); else `multi_k` capped by
+    `chunk_steps`; below 2, 0.  The JAX rule also needs the batch to fit
+    one TPU VMEM tile (`pick_tile(bs) == bs`); the card's kernel tiles any
+    batch, so that gate is dropped."""
     if not use_fused or not multi_k or per_expert_masks:
         return 0
-    cap = max(1, MULTI_STEP_BYTES // (E * bs * padded_in * 4))
-    k = min(multi_k, cap, steps)
+    k = min(multi_k, chunk_steps(E, bs, padded_in, steps))
     return k if k >= 2 else 0
 
 
@@ -244,13 +257,17 @@ def _epoch_batches(epoch: int, perms, generator, geo: Geometry, H: int, W: int,
     padded to whole batches -> (granule ids (steps, bpg), masks (steps, bs));
     `hw` as `_granule_batches` takes it.  `hws`: one real (height, width)
     per expert, or None where the expert fills the grid: masks (steps, E,
-    bs), expert e's those `hw=hws[e]` gives."""
+    bs), expert e's those `hw=hws[e]` gives.  On CUDA the ids go up from
+    pinned memory, so the host does not wait for the card's queued work."""
     if perms is not None:
         perm = torch.from_numpy(np.array(perms[epoch], dtype=np.int64))
     else:
         perm = torch.randperm(geo.n_g, generator=generator)
     pad = torch.full((geo.steps * geo.bpg - geo.n_g,), geo.n_g, dtype=torch.int64)
-    perm = torch.cat([perm, pad]).view(geo.steps, geo.bpg).to(dev)
+    perm = torch.cat([perm, pad]).view(geo.steps, geo.bpg)
+    if dev.type == "cuda":
+        perm = perm.pin_memory()
+    perm = perm.to(dev, non_blocking=True)
 
     def batches(hw_):
         return _granule_batches(perm, geo.n_g, H * W, geo.g, geo.steps, geo.ng_row, W, hw_)
@@ -332,10 +349,12 @@ def fit(
     `generator`: CPU generator for the init params and the per-epoch
     permutations; `init` / `perms` (one permutation of the granule ids per
     epoch) replace the draws when given.  `use_fused` (default: on CUDA)
-    trains with the fused step, else with the exact autograd step.
+    trains with the fused step, else with the exact autograd step, one
+    call a step on views of a chunk of batches built at once (`chunk_steps`
+    long, split by `_chunks`; counted in `fit.chunks`).
     `multi_k` (fused only; resolved by `multi_step_k`): k steps per
-    `fused_multi_step` call (kernel K3), each epoch split by `_chunks`, the
-    chunk's batches built at once; the result is the per-step fit's.
+    `fused_multi_step` call (kernel K3) instead, chunks of k; the result is
+    the per-step fit's.
     `mm_dtype` (None or "bfloat16"): the fused steps' product operands, as
     `fused_train_step` takes it; the exact step and the eval ignore it.
 
@@ -365,7 +384,8 @@ def fit(
     to the first step: copies, labels, the staged features or taps,
     buffers, init), `stage_device` (its device seconds, CUDA events from
     the entry to the init's upload, which syncs the stream), `steps` (one
-    span an epoch: its batches, their staging and the step calls issued),
+    span an epoch: its batches' staging, the step calls issued and the
+    next epoch's permutation and masks; the first epoch's own too),
     `eval` (one span an eval: its issue and the sync that reads its MSE)
     and `eval_device` (the eval's device seconds, CUDA events); neither
     device span on the CPU.
@@ -395,7 +415,7 @@ def fit(
         bs_l, bpg_l = bs // dp, bpg // dp  # this rank's slice of a batch
         block_rows = feature_block_rows(H, W)
         k = multi_step_k(multi_k, use_fused, 1, bs, padded_in, steps)
-        kb = max(k, 1)
+        kb = k or chunk_steps(1, bs_l, padded_in, steps)  # steps staged at once
 
         # labels: flat granule rows (the evals'; the batches' but for
         # "banded", which gathers granule rows of the W-padded grid)
@@ -405,9 +425,11 @@ def fit(
             y_all_g = build_banded_labels(labels, H, W, g).to(torch.float32) * ls
         else:
             y_all_g = y_all.view(n_g, g * C)
-        # one step's (or one k-step chunk's) batch; columns past dim_in stay 0
+        # one chunk's batches, step by step; columns past dim_in stay 0
         xbuf = torch.zeros((kb * bs_l, padded_in), dtype=torch.float32, device=dev)
         ybuf = torch.empty((kb * bpg_l, g * C), dtype=torch.float32, device=dev)
+        xs, ys = xbuf.view(kb, bs_l, padded_in), ybuf.view(kb, bs_l, C)
+        x_at, y_at = xs.unbind(0), ys.unbind(0)  # each step's views
         xeval = torch.zeros((block_rows * W, padded_in), dtype=torch.float32, device=dev)
 
         def slice_rows(r0):
@@ -462,7 +484,7 @@ def fit(
             x_rows = slice_rows
 
         def stage(ids):
-            """The batches of granule ids `ids` (one step's or a chunk's)."""
+            """The batches of granule ids `ids` (a chunk's, step-major)."""
             stage_x(ids)
             torch.index_select(y_all_g, 0, ids, out=ybuf[: len(ids)])
 
@@ -475,31 +497,46 @@ def fit(
         schedule = make_lr_schedule(tspec, steps)
 
         step_losses = torch.zeros((tspec.epochs, steps), dtype=torch.float32, device=dev)
+        # an epoch's masks and losses, and this rank's views of them a step (made once)
+        mask_buf = torch.empty((steps, bs), dtype=torch.float32, device=dev)
+        loss_buf = torch.empty((steps,), dtype=torch.float32, device=dev)
+        masks = mask_buf[:, me * bs_l : (me + 1) * bs_l]
+        mask_at, loss_at = masks.unbind(0), loss_buf.unbind(0)
+
+        def draw(epoch):
+            """The epoch's granule ids (this rank's); its masks into mask_buf."""
+            gi, m = _epoch_batches(epoch, perms, generator, geo, H, W, dev, hw)
+            mask_buf.copy_(m)
+            return gi[:, me * bpg_l : (me + 1) * bpg_l]
+
         best = params.map(torch.zeros_like)
         best_mse, best_epoch = np.float32(1e6), -1
         count = 0
         in_stage.close()
+        gi = None
         for epoch in range(tspec.epochs):
             with span.phase("steps"):
-                gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev, hw)
-                if k:
-                    for s0, kc in _chunks(steps, k):
-                        stage(gi[s0 : s0 + kc].reshape(-1))
-                        fused_multi_step(params, m_state, v_state,
-                                         xbuf[: kc * bs].view(kc, bs, padded_in),
-                                         ybuf[: kc * bpg].view(kc, bs, C), masks[s0 : s0 + kc],
+                gi = draw(epoch) if gi is None else gi
+                for s0, kc in _chunks(steps, kb):
+                    stage(gi[s0 : s0 + kc].reshape(-1))
+                    fit.chunks += 1
+                    if k:
+                        fused_multi_step(params, m_state, v_state, xs[:kc], ys[:kc],
+                                         masks[s0 : s0 + kc],
                                          [schedule(count + s) for s in range(kc)], count + 1,
-                                         mspec, C, loss_out=step_losses[epoch, s0 : s0 + kc],
+                                         mspec, C, loss_out=loss_buf[s0 : s0 + kc],
                                          mm_dtype=mm_dtype)
                         count += kc
-                else:
-                    for s in range(steps):
-                        stage(gi[s, me * bpg_l : (me + 1) * bpg_l])
-                        step_fn(params, m_state, v_state, xbuf, ybuf.view(bs_l, C),
-                                masks[s, me * bs_l : (me + 1) * bs_l], schedule(count),
-                                count + 1, mspec, C, loss_out=step_losses[epoch, s],
+                        continue
+                    for s in range(s0, s0 + kc):
+                        step_fn(params, m_state, v_state, x_at[s - s0], y_at[s - s0], mask_at[s],
+                                schedule(count), count + 1, mspec, C, loss_out=loss_at[s],
                                 mm_dtype=mm_dtype)
                         count += 1
+                step_losses[epoch].copy_(loss_buf)
+                # the next epoch's batches, drawn while the card works through this one's
+                # steps (its masks land in mask_buf after them, in stream order)
+                gi = draw(epoch + 1) if epoch + 1 < tspec.epochs else None
 
             if tspec.epochs == 1:
                 best = params.map(torch.clone)
@@ -525,6 +562,9 @@ def fit(
             staging=staging,
             staged_bytes=staged.numel() * staged.element_size(),
         )
+
+
+fit.chunks = 0  # chunks of steps staged (one pass each), over every fit
 
 
 def _dp_step(params, m_state, v_state, x, y, mask, lr, step, mspec, dim_out, group,
@@ -611,7 +651,9 @@ def fit_rate_experts(
     `val_every` epochs each expert's full-image MSE (from its tap matrix,
     or by the slice path from its plane for "banded" and for coordinate
     features: values bit-identical to `fit`'s evals) decides its own
-    strict-improvement best params.  The eval runs expert by expert, one
+    strict-improvement best params.  Each epoch's batches are staged a
+    chunk of `chunk_steps` steps at a time (`fit_rate_experts.chunks`), the
+    step calls taking views of the chunk.  The eval runs expert by expert, one
     row block at a time (the JAX package's per-expert unrolled eval for
     large scenes, EVAL_UNROLL_PX, is therefore the only form here).
 
@@ -709,12 +751,13 @@ def fit_rate_experts(
         kmasks = kmasks.view(E, 1, 1)
         lscales = torch.tensor([lsb_scale(K) for K in Ks], dtype=torch.float32, device=dev)
         lscales = lscales.view(E, 1, 1)
-        # the staged batches of one step, or of a k-step chunk: (k, E, ...)
-        kb = max(k, 1)
+        # the staged batches of a chunk of kb steps: (kb, E, ...)
+        kb = k or chunk_steps(E, bs, padded_in, steps)
         xbuf = torch.zeros((kb, E, bs, padded_in), dtype=torch.float32, device=dev)
         lbuf = torch.empty((len(used), kb * bpg, g * C), dtype=torch.int32, device=dev)
         ybits = torch.empty((kb, E, bs, C), dtype=torch.int32, device=dev)
         ybuf = torch.empty((kb, E, bs, C), dtype=torch.float32, device=dev)
+        x_at, y_at = xbuf.unbind(0), ybuf.unbind(0)  # each step's views
         ar_g = torch.arange(g, device=dev)
 
         def stage(ids, kc):
@@ -768,30 +811,44 @@ def fit_rate_experts(
         schedule = make_lr_schedule(tspec, steps)
 
         losses = torch.zeros((tspec.epochs, steps, E), dtype=torch.float32, device=dev)
+        # an epoch's masks and losses, and their views a step, as in `fit`
+        masks = torch.empty((steps, bs) if hws is None else (steps, E, bs), dtype=torch.float32,
+                            device=dev)
+        loss_buf = torch.empty((steps, E), dtype=torch.float32, device=dev)
+        mask_at, loss_at = masks.unbind(0), loss_buf.unbind(0)
+
+        def draw(epoch):
+            gi, m = _epoch_batches(epoch, perms, generator, geo, H, W, dev, hws=hws)
+            masks.copy_(m)
+            return gi
+
         best = params.map(torch.zeros_like)
         best_mse, best_epoch = [np.float32(1e6)] * E, [-1] * E
         count = 0
         in_stage.close()
+        gi = None
         for epoch in range(tspec.epochs):
             with span.phase("steps"):
-                gi, masks = _epoch_batches(epoch, perms, generator, geo, H, W, dev, hws=hws)
-                if k:
-                    for s0, kc in _chunks(steps, k):
-                        stage(gi[s0 : s0 + kc].reshape(-1), kc)
+                gi = draw(epoch) if gi is None else gi
+                for s0, kc in _chunks(steps, kb):
+                    stage(gi[s0 : s0 + kc].reshape(-1), kc)
+                    fit_rate_experts.chunks += 1
+                    if k:
                         fused_expert_multi_step(params, m_state, v_state, xbuf[:kc], ybuf[:kc],
                                                 masks[s0 : s0 + kc],
                                                 [schedule(count + s) for s in range(kc)],
                                                 count + 1, mspec, C,
-                                                loss_out=losses[epoch, s0 : s0 + kc],
+                                                loss_out=loss_buf[s0 : s0 + kc],
                                                 mm_dtype=mm_dtype)
                         count += kc
-                else:
-                    for s in range(steps):
-                        stage(gi[s], 1)
-                        step_fn(params, m_state, v_state, xbuf[0], ybuf[0], masks[s],
-                                schedule(count), count + 1, mspec, C,
-                                loss_out=losses[epoch, s], mm_dtype=mm_dtype)
+                        continue
+                    for s in range(s0, s0 + kc):
+                        step_fn(params, m_state, v_state, x_at[s - s0], y_at[s - s0], mask_at[s],
+                                schedule(count), count + 1, mspec, C, loss_out=loss_at[s],
+                                mm_dtype=mm_dtype)
                         count += 1
+                losses[epoch].copy_(loss_buf)
+                gi = draw(epoch + 1) if epoch + 1 < tspec.epochs else None  # as `fit` does
 
             if tspec.epochs == 1:
                 best = params.map(torch.clone)
@@ -822,3 +879,6 @@ def fit_rate_experts(
             staging=staging,
             staged_bytes=sum(t.numel() * t.element_size() for t in taps),
         )
+
+
+fit_rate_experts.chunks = 0  # as `fit.chunks`

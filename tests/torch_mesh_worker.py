@@ -131,6 +131,46 @@ def task_fit_dp(meshes, img, K, tspec, seed=None, init=None, perms=None, ref=Fal
     return out
 
 
+def task_fit_dp_chunks(meshes, img, K, tspec, chunk_bytes):
+    """fit_dp with each epoch staged in chunks of `chunk_bytes` of batches
+    (train.loop.MULTI_STEP_BYTES) and in chunks of one step: each fit's
+    result, its step calls (through `train.loop._dp_step`, looked up as the
+    fit looks it up), the chunks it staged, and whether every call's x, y
+    and mask were the same in both."""
+    from lbdrn_msic_tpu_torch.codec import tile_generator
+    from lbdrn_msic_tpu_torch.core.config import FeatureSpec, ModelSpec
+    from lbdrn_msic_tpu_torch.features.engine import lsb_scale
+    from lbdrn_msic_tpu_torch.parallel.shard import fit_dp
+    from lbdrn_msic_tpu_torch.train import loop
+
+    fspec, mspec = FeatureSpec(), ModelSpec(**MSPEC_KW)
+    plane, scale, lsb = _prep(img, K, fspec.D)
+    C, H, W = img.shape
+    real, old = loop._dp_step, loop.MULTI_STEP_BYTES
+    out, batches = {}, {}
+    for name, nbytes in (("chunked", chunk_bytes), ("one_step", 1)):
+        calls = batches[name] = []
+
+        def step(params, m, v, x, y, mask, *a, **kw):
+            calls.append((x.clone(), y.clone(), mask.clone()))
+            return real(params, m, v, x, y, mask, *a, **kw)
+
+        chunks0 = loop.fit.chunks
+        loop._dp_step, loop.MULTI_STEP_BYTES = step, nbytes
+        try:
+            res = fit_dp(meshes["dp"], plane, scale, lsb, float(np.float32(lsb_scale(K))),
+                         tile_generator(3, 0), fspec, mspec, tspec, H, W, C, device="cpu")
+        finally:
+            loop._dp_step, loop.MULTI_STEP_BYTES = real, old
+        out[name] = {**_fit_out(res), "calls": len(calls), "chunks": loop.fit.chunks - chunks0}
+    import torch
+
+    out["batches_equal"] = len(batches["chunked"]) == len(batches["one_step"]) and all(
+        all(torch.equal(a, b) for a, b in zip(ca, cb))
+        for ca, cb in zip(batches["chunked"], batches["one_step"]))
+    return out
+
+
 def task_fit_experts(meshes, mesh, img, Ks, tspec, seed=None, init=None, perms=None,
                      ref=False):
     import torch
